@@ -1,0 +1,41 @@
+"""hivedscheduler_tpu_torch: the workload stack of hivedscheduler_tpu, in
+PyTorch and CUDA for NVIDIA Hopper (H100).
+
+Module names mirror the JAX package's (``ops/attention.py``,
+``models/transformer.py``, ``models/generate.py``, ...), so each module's
+counterpart is found by its path. The package imports ``torch`` and never
+``jax`` or ``hivedscheduler_tpu``: what it needs of the JAX package it keeps
+a copy of. Kernels the JAX package wrote in Pallas are written by hand for
+``sm_90a`` under ``ops/csrc/`` and built on first use.
+
+Ported so far: single-device Llama serving (flash prefill through the
+hand-written flash-attention forward, KV-cache decode, int8 linears);
+``python -m hivedscheduler_tpu_torch.serve``.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+__version__ = "0.1.0"
+
+Device = Union[str, torch.device, None]
+
+
+def resolve_device(device: Device = None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. ``None`` means CUDA and raises when there is none, so a run
+    never drifts onto the CPU; the CPU is taken only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU"
+            )
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} was asked for but CUDA is not available")
+    return dev

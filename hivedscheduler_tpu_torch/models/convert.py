@@ -1,0 +1,37 @@
+"""Parameters of the JAX package, as numpy arrays, to the port's.
+
+The two packages share one layout (stacked ``[n_layers, ...]`` leaves,
+``[in, out]`` matrices), so conversion is a leaf-by-leaf copy: no renames,
+no transposes. Int8-quantized leaves (``{"w": int8, "scale": f32}``) keep
+their int8 weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .. import Device, resolve_device
+
+
+def params_from_jax(
+    tree: Any, device: Device = None, dtype: torch.dtype = torch.float32
+) -> Any:
+    """Convert a parameter tree of numpy arrays (e.g. ``jax.tree.map(
+    np.asarray, params)``) to torch tensors on ``device``. Float leaves
+    become ``dtype``; int8 leaves stay int8."""
+    device = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        a = np.asarray(node)
+        if a.dtype == np.int8:
+            return torch.from_numpy(a.copy()).to(device)
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=device, dtype=dtype
+        )
+
+    return convert(tree)
