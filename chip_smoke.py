@@ -11,9 +11,11 @@ script exits non-zero:
 2. build   - compiles every kernel under hivedscheduler_tpu_torch/ops/csrc.
 3. kernels - each kernel's wrapper against its plain PyTorch version on the
              card, at the main path's shapes and a few edge cases (ragged
-             tile, non-causal, f32), with the tolerances below; times the
-             kernel, the plain version and the library call that computes
-             the same function (a yardstick only: the port never calls it).
+             tile, non-causal, f32, head_dim 32/64/128), with the tolerances
+             below; times the kernel, the plain version and the library call
+             that computes the same function (a yardstick only: the port
+             never calls it). The backward kernels, and the forward again,
+             are checked and timed at the training shape, B1 S8192.
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
              tokens through the serving entry point. Launch counts are set
@@ -23,6 +25,19 @@ script exits non-zero:
              its argmax in >= 3 of 4 rows, and every generated token's logit
              must be within MAX_LOGIT_GAP of its position's best. Then a
              short int8 request, whose launches must count.
+5. train   - after serving's weights are freed. (a) a tiny f32 model (4/2
+             heads, head_dim 32, S 256, remat "flash") takes 2 AdamW steps
+             on the card and 2 on the CPU from the same weights: the losses,
+             the step-1 gradients and the parameters must agree within
+             TRAIN_TOL. (b) Llama-3-8B at full width, depth cut to 8
+             layers, f32 master weights, bf16 compute,
+             remat "flash", batch 1 x 8192 tokens from --seed: 2 warm-up and
+             4 timed steps through the training entry point. Launch counts
+             are set to 0 before and read after; every step must launch the
+             forward, dK/dV and dQ kernels once a layer (the forward once,
+             not twice: the "flash" policy keeps its outputs). Losses must be
+             finite, the first near ln(vocab) + 0.5, the last below the
+             first.
 
 The lines before the last are nvidia-smi's name and power limit, then one
 JSON object with each kernel's numbers; the last line is
@@ -33,17 +48,11 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
-
-# Peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of a kernel is
-# the larger of its bytes over the memory rate and its operations over the
-# peak rate of their type.
-H100_BYTES_PER_S = 3.35e12
-H100_BF16_FLOPS = 989e12
-H100_F32_FLOPS = 67e12  # outside the tensor cores
 
 # Kernel vs plain version. bf16: both take f32 scores and an f32 softmax;
 # they differ by the summation order of QK^T and PV and by __expf, which can
@@ -54,6 +63,15 @@ TOL_BF16 = {"o_max": 2e-2, "o_mean": 2e-3, "lse_max": 1e-3}
 # __expf's ~2 ulp differ.
 TOL_F32 = {"o_max": 1e-4, "o_mean": 1e-5, "lse_max": 1e-4}
 
+# Backward kernels vs their plain versions, as max and mean |delta| over
+# max |reference| of each of dQ, dK, dV. bf16: the kernels round P and dS to
+# bf16 (2^-9 relative) before P^T dO, dS^T Q and dS K, where the plain
+# version keeps f32 (the JAX kernels' arithmetic), and both round their
+# outputs to bf16, so one bf16 ulp (<= 2^-8 of max) can separate an element.
+TOL_BWD_BF16 = {"max": 2e-2, "mean": 2e-3}
+# f32: the same arithmetic; only the order of sums and expf's ulps differ.
+TOL_BWD_F32 = {"max": 1e-4, "mean": 1e-5}
+
 # Generated token vs forward()'s best logit at its position, on bf16 logits
 # of magnitude < 16: 0.25 is four bf16 ulps there, the noise of two bf16
 # paths through 32 layers (measured: at most 0.0625 at the 7% of decoded
@@ -63,6 +81,21 @@ MAX_LOGIT_GAP = 0.25
 
 SERVE = {"batch": 4, "prompt": 2048, "new_tokens": 32, "requests": 2}
 INT8 = {"batch": 1, "prompt": 512, "new_tokens": 4}
+
+TRAIN = {"model": "llama3_8b", "layers": 8, "batch": 1, "seq": 8192, "warmup": 2,
+         "timed": 4, "remat_policy": "flash"}
+TINY_TRAIN = {"batch": 2, "seq": 256, "steps": 2}
+# Tiny card-vs-CPU training, f32 throughout: the kernels sum in another
+# order than the CPU's plain versions (~1e-6 relative). The step-1
+# gradients are held leaf by leaf to the JAX package's 1e-4 of max |CPU|.
+# The parameters after both steps are held only on the mean: Adam's update
+# is about lr * sign(g) for each element, so a gradient near 0 that the two
+# sides round to opposite signs moves its parameter 2 lr apart, however
+# close the gradients are. The losses agree to 1e-4.
+TRAIN_TOL = {"loss": 1e-4, "grad_max_rel": 1e-4, "param_mean": 1e-6}
+# First loss of random init: logits of unit variance give about
+# ln(vocab) + 0.5.
+LOSS_BAND = 1.5
 
 
 def log(phase: str, **fields) -> None:
@@ -94,24 +127,68 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound_ms(b, s, h, hkv, d, causal, dtype) -> tuple:
-    """Least time for the flash forward on this card: QK^T and PV over the
-    (q, k) pairs the mask keeps, against q/k/v read once and o/lse written
-    once."""
+# Matrix products of [S, D] by [D, S] size that each flash kernel does over
+# the (q, k) pairs the mask keeps: forward QK^T and PV; dK/dV S, dV, dP and
+# dK; dQ S, dP and dQ.
+FLASH_PRODUCTS = {"fwd": 2, "dkdv": 4, "dq": 3}
+
+
+def flash_flops(kind, b, s, h, d, causal) -> int:
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return FLASH_PRODUCTS[kind] * 2 * d * pairs * b * h
+
+
+def flash_bound_ms(kind, b, s, h, hkv, d, causal, dtype) -> tuple:
+    """Least time for one flash kernel on this card: the larger of its
+    operations over the peak rate of their type and its bytes over the
+    memory rate, each input read once and each output written once. The
+    forward reads q, k, v and writes o and LSE; each backward kernel reads
+    q, k, v, dO, LSE and Delta and writes dK and dV, or dQ."""
     import torch
 
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 2 * 2 * d * pairs * b * h
+    from hivedscheduler_tpu_torch.models import perf
+
     elt = torch.finfo(dtype).bits // 8
-    nbytes = elt * d * b * s * (2 * h + 2 * hkv) + 4 * b * h * s
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
+    q_bytes, kv_bytes, row_bytes = elt * d * b * s * h, elt * d * b * s * hkv, 4 * b * h * s
+    if kind == "fwd":
+        nbytes = 2 * q_bytes + 2 * kv_bytes + row_bytes
+    else:
+        nbytes = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+        nbytes += 2 * kv_bytes if kind == "dkdv" else q_bytes
+    peak = perf.H100_BF16_FLOPS if dtype == torch.bfloat16 else perf.H100_F32_FLOPS
+    t_ops = flash_flops(kind, b, s, h, d, causal) / peak
+    t_bytes = nbytes / perf.H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def check_fwd(name, q, k, v, causal, out, lse) -> dict:
+    """The forward kernel's (out, lse) against its plain version on the same
+    inputs; raises past TOL_BF16 or TOL_F32."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as A
+
+    b, s, h, d = q.shape
+    ref_out, ref_lse = A.flash_attention_reference(q, k, v, causal)
+    d_o = (out.float() - ref_out.float()).abs()
+    tol = TOL_BF16 if q.dtype == torch.bfloat16 else TOL_F32
+    fields = {
+        "case": name, "shape": [b, s, h, k.shape[2], d], "causal": causal,
+        "dtype": str(q.dtype).replace("torch.", ""),
+        "o_max_abs_err": d_o.max().item(), "o_mean_abs_err": d_o.mean().item(),
+        "lse_max_abs_err": (lse - ref_lse).abs().max().item(), "tol": tol,
+    }
+    if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    if (fields["o_max_abs_err"] > tol["o_max"] or fields["o_mean_abs_err"] > tol["o_mean"]
+            or fields["lse_max_abs_err"] > tol["lse_max"]):
+        raise AssertionError(f"kernel disagrees with its plain version: {fields}")
+    return fields
+
+
 def phase_kernels(seed: int) -> dict:
-    """Flash forward kernel vs its plain version; returns the numbers of the
-    main-path case for the kernels line."""
+    """Flash forward kernel vs its plain version at the serving shapes;
+    returns the numbers of the main-path case for the kernels line."""
     import torch
     import torch.nn.functional as F
 
@@ -136,21 +213,7 @@ def phase_kernels(seed: int) -> dict:
         v = torch.randn(b, s, hkv, d, device="cuda", dtype=dtype, generator=gen)
         out, lse = A.flash_attention(q, k, v, causal)
         torch.cuda.synchronize()
-        ref_out, ref_lse = A.flash_attention_reference(q, k, v, causal)
-        d_o = (out.float() - ref_out.float()).abs()
-        d_lse = (lse - ref_lse).abs().max().item()
-        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
-        fields = {
-            "case": name, "shape": [b, s, h, hkv, d], "causal": causal,
-            "dtype": str(dtype).replace("torch.", ""),
-            "o_max_abs_err": d_o.max().item(), "o_mean_abs_err": d_o.mean().item(),
-            "lse_max_abs_err": d_lse, "tol": tol,
-        }
-        if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
-            raise AssertionError(f"{name}: non-finite kernel output")
-        if (fields["o_max_abs_err"] > tol["o_max"] or fields["o_mean_abs_err"] > tol["o_mean"]
-                or d_lse > tol["lse_max"]):
-            raise AssertionError(f"kernel disagrees with its plain version: {fields}")
+        fields = check_fwd(name, q, k, v, causal, out, lse)
         if timed:
             fields["kernel_ms"] = cuda_ms(lambda: A.flash_attention(q, k, v, causal), 20)
             fields["plain_ms"] = cuda_ms(
@@ -165,17 +228,118 @@ def phase_kernels(seed: int) -> dict:
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 20
             )
             fields["bound_ms"], fields["bound_by"] = flash_bound_ms(
-                b, s, h, hkv, d, causal, dtype
+                "fwd", b, s, h, hkv, d, causal, dtype
             )
             fields["kernel_tflops"] = (
-                4 * d * (s * (s + 1) // 2 if causal else s * s) * b * h
-                / (fields["kernel_ms"] * 1e-3) / 1e12
+                flash_flops("fwd", b, s, h, d, causal) / (fields["kernel_ms"] * 1e-3) / 1e12
             )
             del qt, kt, vt
         log("kernels", **fields)
         if name == "main_path":
             main = fields
-        del q, k, v, out, lse, ref_out, ref_lse, d_o
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    return main
+
+
+def time_bwd(q, k, v, do, lse, delta, causal) -> dict:
+    """Device times of the two backward kernels, their plain versions (one
+    call after one warm-up: the allocator's cache was just emptied) and
+    SDPA's whole backward, with each kernel's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.ops import attention as A
+
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    times = {}
+    for kind, kernel, plain in (
+        ("dkdv", A.flash_bwd_dkdv, A.flash_bwd_dkdv_reference),
+        ("dq", A.flash_bwd_dq, A.flash_bwd_dq_reference),
+    ):
+        ms = cuda_ms(lambda: kernel(q, k, v, do, lse, delta, causal), 5)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, do, lse, delta, causal), 1, warmup=1)
+        torch.cuda.empty_cache()
+        bound, by = flash_bound_ms(kind, b, s, h, hkv, d, causal, q.dtype)
+        times[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "tflops": flash_flops(kind, b, s, h, d, causal) / (ms * 1e-3) / 1e12}
+    # Library yardstick: SDPA's backward on [B, H, S, D] with K/V repeated,
+    # timed alone (the forward runs once, outside the timed region).
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2).contiguous()
+    times["library_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 5
+    )
+    log("kernels", case="bwd_timing", shape=[b, s, h, hkv, d], causal=causal,
+        dtype=str(q.dtype).replace("torch.", ""), dkdv=times["dkdv"], dq=times["dq"],
+        sdpa_backward_ms=times["library_ms"],
+        kernels_sum_ms=times["dkdv"]["ms"] + times["dq"]["ms"])
+    return times
+
+
+def phase_kernels_bwd(seed: int) -> dict:
+    """The dK/dV and dQ kernels vs their plain versions; returns the
+    main-path numbers for the kernels line. The main-path case is the
+    training step's attention, B1 S8192: there the forward kernel is held to
+    its plain version too, and the backward kernels are timed."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as A
+
+    # (name, B, S, H, Hkv, D, causal, dtype)
+    cases = [
+        ("bwd_main_path", TRAIN["batch"], TRAIN["seq"], 32, 8, 128, True, torch.bfloat16),
+        ("bwd_ragged_causal", 1, 1000, 32, 8, 128, True, torch.bfloat16),
+        ("bwd_full", 1, 2048, 32, 8, 128, False, torch.bfloat16),
+        ("bwd_f32_ragged_causal_d64", 1, 1000, 8, 2, 64, True, torch.float32),
+        ("bwd_f32_full_d128", 1, 512, 8, 2, 128, False, torch.float32),
+        ("bwd_bf16_causal_d32", 1, 300, 4, 2, 32, True, torch.bfloat16),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    main = {}
+    for name, b, s, h, hkv, d, causal, dtype in cases:
+        q = torch.randn(b, s, h, d, device="cuda", dtype=dtype, generator=gen)
+        k = torch.randn(b, s, hkv, d, device="cuda", dtype=dtype, generator=gen)
+        v = torch.randn(b, s, hkv, d, device="cuda", dtype=dtype, generator=gen)
+        do = torch.randn(b, s, h, d, device="cuda", dtype=dtype, generator=gen)
+        out, lse = A.flash_attention(q, k, v, causal)
+        delta = A.flash_bwd_delta(out, do)
+        dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+        dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        if name == "bwd_main_path":
+            main["fwd"] = check_fwd("fwd_train_path", q, k, v, causal, out, lse)
+            log("kernels", **main["fwd"])
+        ref_dk, ref_dv = A.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal)
+        ref_dq = A.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+        tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD_F32
+        fields = {"case": name, "shape": [b, s, h, hkv, d], "causal": causal,
+                  "dtype": str(dtype).replace("torch.", ""), "tol": tol}
+        for grad, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            if got.shape != ref.shape or got.dtype != ref.dtype:
+                raise AssertionError(f"{name}: {grad} {tuple(got.shape)} {got.dtype} vs "
+                                     f"{tuple(ref.shape)} {ref.dtype}")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: non-finite {grad}")
+            diff = (got.float() - ref.float()).abs()
+            scale = ref.float().abs().max().item()
+            fields[f"{grad}_max_abs_err"] = diff.max().item()
+            fields[f"{grad}_max_rel"] = diff.max().item() / scale
+            fields[f"{grad}_mean_rel"] = diff.mean().item() / scale
+            if fields[f"{grad}_max_rel"] > tol["max"] or fields[f"{grad}_mean_rel"] > tol["mean"]:
+                raise AssertionError(f"backward kernel disagrees with its plain version: {fields}")
+        log("kernels", **fields)
+        del dk, dv, dq, ref_dk, ref_dv, ref_dq
+        torch.cuda.empty_cache()
+        if name == "bwd_main_path":
+            main["dkdv_max_abs_err"] = max(fields["dk_max_abs_err"], fields["dv_max_abs_err"])
+            main["dq_max_abs_err"] = fields["dq_max_abs_err"]
+            main.update(time_bwd(q, k, v, do, lse, delta, causal))
+        del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return main
 
@@ -237,7 +401,8 @@ def phase_serve(seed: int, profile: bool, model: str = "llama3_8b",
     # tokens whose logit lies about as far below the best as a random one's.
     toks = results[-1]["tokens"]
     full = torch.cat([prompts[-1], toks[:, :-1]], dim=1)
-    logits = transformer.forward(params, full, config)[:, SERVE["prompt"] - 1:]
+    with torch.inference_mode():
+        logits = transformer.forward(params, full, config)[:, SERVE["prompt"] - 1:]
     if not torch.isfinite(logits).all():
         raise AssertionError("forward() logits are not finite")
     pred = logits.argmax(-1)
@@ -276,12 +441,142 @@ def phase_serve(seed: int, profile: bool, model: str = "llama3_8b",
     return {"launches": launches, "results": results}
 
 
+def phase_train(seed: int, profile: bool) -> dict:
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch import train as entry
+    from hivedscheduler_tpu_torch.models import convert, perf, train, transformer
+    from hivedscheduler_tpu_torch.ops import attention as A
+    from hivedscheduler_tpu_torch.serve import synthetic_tokens
+
+    # (a) tiny: the autograd wiring through the f32 kernels against the CPU.
+    config = dataclasses.replace(transformer.tiny(), remat=True, remat_policy="flash")
+    cpu_params = transformer.init(config, torch.Generator().manual_seed(seed), "cpu",
+                                  dtype=torch.float32)
+    card_params = convert.params_from_jax(convert.params_to_numpy(cpu_params), device="cuda")
+    toks = torch.from_numpy(synthetic_tokens(np.random.default_rng(seed + 3), TINY_TRAIN["batch"],
+                                             TINY_TRAIN["seq"], config.vocab_size))
+
+    def run_tiny(params, tokens):
+        """The steps' records and the step-1 gradients (on the CPU)."""
+        recs, grads = [], None
+        for rec in entry.run(params, config, tokens, TINY_TRAIN["steps"]):
+            recs.append(rec)
+            if grads is None:
+                grads = [t.grad.detach().cpu().clone() for t in transformer.leaves(params)]
+        return recs, grads
+
+    cpu_recs, cpu_grads = run_tiny(cpu_params, toks)
+    card_recs, card_grads = run_tiny(card_params, toks.cuda())
+    loss_gap = max(abs(a["loss"] - c["loss"]) for a, c in zip(cpu_recs, card_recs))
+    grad_rel = max(((a - c).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+                   for a, c in zip(cpu_grads, card_grads))
+    diffs = [(a.detach() - c.detach().cpu()).abs()
+             for a, c in zip(transformer.leaves(cpu_params), transformer.leaves(card_params))]
+    param_mean = sum(d.sum().item() for d in diffs) / sum(d.numel() for d in diffs)
+    fields = {"losses_cpu": [r["loss"] for r in cpu_recs],
+              "losses_card": [r["loss"] for r in card_recs], "loss_gap": loss_gap,
+              "grad_max_rel": grad_rel, "param_max_abs_diff": max(d.max().item() for d in diffs),
+              "param_mean_abs_diff": param_mean, "tol": TRAIN_TOL,
+              "launches_per_step": [r["launches"] for r in card_recs]}
+    for r in card_recs:
+        if set(r["launches"].values()) != {config.n_layers}:
+            raise AssertionError(f"tiny train step launches {r['launches']}, not {config.n_layers} each")
+    if (loss_gap > TRAIN_TOL["loss"] or grad_rel > TRAIN_TOL["grad_max_rel"]
+            or param_mean > TRAIN_TOL["param_mean"]):
+        raise AssertionError(f"tiny training on the card disagrees with the CPU: {fields}")
+    log("train", step="tiny_card_vs_cpu", **fields)
+    del card_params, cpu_params
+
+    # (b) Llama-3-8B widths, depth cut to 8 layers, through the entry point.
+    t0 = time.perf_counter()
+    config, params = entry.build(TRAIN["model"], seed, "cuda", TRAIN["layers"],
+                                 TRAIN["remat_policy"])
+    n_param = perf.n_params(params)
+    tokens = torch.from_numpy(synthetic_tokens(np.random.default_rng(seed + 1), TRAIN["batch"],
+                                               TRAIN["seq"], config.vocab_size)).cuda()
+    torch.cuda.synchronize()
+    log("train", step="init", model=TRAIN["model"], n_layers=config.n_layers,
+        d_model=config.d_model, n_params=n_param, seconds=time.perf_counter() - t0,
+        weights_gib=torch.cuda.memory_allocated() / 2**30)
+    optimizer = train.make_optimizer(params)
+    torch.cuda.reset_peak_memory_stats()
+    A.flash_attention.launches = A.flash_bwd_dkdv.launches = A.flash_bwd_dq.launches = 0
+    recs = list(entry.run(params, config, tokens, TRAIN["warmup"] + TRAIN["timed"],
+                          optimizer=optimizer))
+    launches = entry.kernel_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for r in recs:
+        log("train", step=f"step_{r['step']}", **{k: v for k, v in r.items() if k != "step"})
+    losses = [r["loss"] for r in recs]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    expected = float(np.log(config.vocab_size)) + 0.5
+    if abs(losses[0] - expected) > LOSS_BAND:
+        raise AssertionError(f"first loss {losses[0]} is not within {LOSS_BAND} of {expected}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
+    for r in recs:
+        if set(r["launches"].values()) != {config.n_layers}:
+            raise AssertionError(
+                f"train step {r['step']} launched {r['launches']}; each kernel must launch "
+                f"{config.n_layers} times (the forward once a layer under remat 'flash')"
+            )
+    timed = recs[TRAIN["warmup"]:]
+    step_ms = sum(r["step_ms"] for r in timed) / len(timed)
+    tok_s = TRAIN["batch"] * TRAIN["seq"] / (step_ms * 1e-3)
+    flops_tok = perf.flops_per_token(config, n_param, TRAIN["seq"])
+    summary = {"n_params": n_param, "losses": losses, "step_ms_mean": step_ms,
+               "step_ms": [r["step_ms"] for r in timed], "tokens_per_s": tok_s,
+               "flops_per_token": flops_tok, "bf16_peak_share": flops_tok * tok_s / perf.H100_BF16_FLOPS,
+               "peak_memory_gib": peak_gib, "launches": launches}
+    log("train", step="summary", **{k: v for k, v in summary.items() if k != "losses"})
+    if profile:
+        profile_train_step(params, optimizer, tokens, config, step_ms)
+    del params, optimizer, tokens
+    torch.cuda.empty_cache()
+    return summary
+
+
+def device_time_rows(prof) -> list:
+    """(device ms, kernel name, launches) by kernel, largest first. User
+    annotations (``Optimizer.step``'s range) are not kernels: their device
+    time is their kernels' again."""
+    from torch.autograd import DeviceType
+
+    return sorted(
+        ((ev.self_device_time_total / 1e3, ev.key, ev.count) for ev in prof.key_averages()
+         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+         and not getattr(ev, "is_user_annotation", False)),
+        reverse=True,
+    )
+
+
+def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float) -> None:
+    """Device time by kernel over one training step; the idle share is taken
+    against the mean unprofiled step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hivedscheduler_tpu_torch.models import train
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(train.train_step(params, optimizer, tokens, config, tokens.device))
+        torch.cuda.synchronize()
+    rows = device_time_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+    log("profile", window="train_step", wall_ms_unprofiled=unprofiled_ms,
+        device_busy_ms=busy_ms, idle_share=1 - busy_ms / unprofiled_ms,
+        kernel_launches=sum(r[2] for r in rows),
+        top=[{"kernel": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:14]])
+
+
 def profile_request(params, prompt, config, unprofiled: dict) -> None:
     """Device time by kernel over one request, prefill and decode apart
     (torch.profiler, kernel events only). The idle share is taken against
     the same request's wall time without the profiler (``unprofiled``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from hivedscheduler_tpu_torch.models import generate
@@ -300,23 +595,20 @@ def profile_request(params, prompt, config, unprofiled: dict) -> None:
         "decode": 1e3 * prompt.shape[0] * (SERVE["new_tokens"] - 1) / unprofiled["decode_tok_s"],
     }
     for name, prof in (("prefill", prefill), ("decode", decode)):
-        rows = sorted(
-            ((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
-            reverse=True,
-        )
-        busy_ms = sum(r[0] for r in rows) / 1e3
+        rows = device_time_rows(prof)
+        busy_ms = sum(r[0] for r in rows)
         log("profile", window=name, wall_ms_unprofiled=walls[name],
             device_busy_ms=busy_ms, idle_share=1 - busy_ms / walls[name],
             kernel_launches=sum(r[2] for r in rows),
-            top=[{"kernel": k[:90], "ms": us / 1e3, "calls": n} for us, k, n in rows[:10]])
+            top=[{"kernel": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:10]])
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description="smoke run of the port on one card")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
-                        help="also print device time by kernel over one request")
+                        help="also print device time by kernel over one request "
+                             "and over one training step")
     args = parser.parse_args()
 
     import torch
@@ -334,21 +626,43 @@ def main() -> int:
 
     log("build", seconds=_build.build_all(), sources=[s.name for s in _build.sources()])
     k = phase_kernels(args.seed)
+    kb = phase_kernels_bwd(args.seed)
     s = phase_serve(args.seed, args.profile)
+    t = phase_train(args.seed, args.profile)
 
+    source = "hivedscheduler_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "hivedscheduler_tpu_torch/ops/csrc/flash_fwd.cu",
+        "source": source + "flash_fwd.cu",
         "replaces": "hivedscheduler_tpu/ops/attention.py:133",
-        "launches": s["launches"],
-        "max_abs_err": k["o_max_abs_err"],
+        "launches": s["launches"] + t["launches"]["flash_fwd"],
+        "launches_by_path": {"serve": s["launches"], "train": t["launches"]["flash_fwd"]},
+        # Held at the serving shape and at the training shape.
+        "max_abs_err": max(k["o_max_abs_err"], kb["fwd"]["o_max_abs_err"]),
         "ms": k["kernel_ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
     }]
+    for name, kind, line in (("flash_bwd_dkdv", "dkdv", 201), ("flash_bwd_dq", "dq", 278)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source + "flash_bwd.cu",
+            "replaces": f"hivedscheduler_tpu/ops/attention.py:{line}",
+            "launches": t["launches"][name],
+            "launches_by_path": {"train": t["launches"][name]},
+            "max_abs_err": kb[f"{kind}_max_abs_err"],
+            "ms": kb[kind]["ms"],
+            "plain_ms": kb[kind]["plain_ms"],
+            "bound_ms": kb[kind]["bound_ms"],
+            "bound_by": kb[kind]["bound_by"],
+            # SDPA's whole backward (dQ, dK and dV in one call): compare it
+            # with the two kernels' sum.
+            "library_ms": kb["library_ms"],
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

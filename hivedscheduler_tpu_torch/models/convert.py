@@ -1,4 +1,4 @@
-"""Parameters of the JAX package, as numpy arrays, to the port's.
+"""Parameters of the JAX package, as numpy arrays, to the port's and back.
 
 The two packages share one layout (stacked ``[n_layers, ...]`` leaves,
 ``[in, out]`` matrices), so conversion is a leaf-by-leaf copy: no renames,
@@ -35,3 +35,12 @@ def params_from_jax(
         )
 
     return convert(tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The inverse of ``params_from_jax``: a tree of numpy arrays on the
+    host, float leaves as f32, int8 leaves as int8."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return t.numpy().copy() if t.dtype == torch.int8 else t.float().numpy().copy()

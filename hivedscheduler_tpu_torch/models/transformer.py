@@ -1,27 +1,37 @@
-"""Llama-style decoder-only transformer, single device (inference parts).
+"""Llama-style decoder-only transformer, single device.
 
 Counterpart of ``hivedscheduler_tpu/models/transformer.py``. Parameters are
 a plain dict in the JAX package's layout: stacked per-layer leaves
 ``[n_layers, ...]`` and ``[in, out]`` matrices applied as ``x @ W``, so a
 JAX parameter tree converts without transposes (``models/convert.py``).
-Attention goes through ``ops.attention.mha`` (the flash kernel for long
-self-attention). Meshes, sequence/pipeline parallelism and remat belong to
-later slices of the port.
+Attention goes through ``ops.attention.mha`` (the flash kernels for long
+self-attention, forward and backward). Training keeps f32 master
+parameters and casts them to the compute dtype on entry, as the JAX
+package does; ``remat`` checkpoints each block (``torch.utils.checkpoint``)
+under one of the JAX package's four policies. Meshes, sequence and pipeline
+parallelism belong to later slices of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from .. import Device, resolve_device
-from ..ops.attention import mha
+from ..ops.attention import mha  # also registers torch.ops.hived.flash_fwd
 
 Params = Dict[str, Any]
+REMAT_POLICIES = ("full", "dots", "flash", "dots+flash")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +45,13 @@ class TransformerConfig:
     max_seq_len: int = 8192
     rope_theta: float = 500000.0
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # "full": recompute the whole block in backward (least memory).
+    # "dots": keep the 2-D matrix products' outputs, recompute the rest.
+    # "flash": keep only the flash forward kernel's (out, lse): backward
+    # then skips the kernel's relaunch, the block's costliest recompute.
+    # "dots+flash": both.
+    remat_policy: str = "full"
     tied_embeddings: bool = False
 
     @property
@@ -68,6 +85,7 @@ def tiny(vocab: int = 512) -> TransformerConfig:
         max_seq_len=512,
         rope_theta=10000.0,
         dtype=torch.float32,
+        remat=False,
     )
 
 
@@ -78,8 +96,9 @@ def init(
     dtype: Optional[torch.dtype] = None,
 ) -> Params:
     """Random parameters, normal / sqrt(fan_in) as in the JAX package, drawn
-    directly in the compute dtype on the device (serving needs no f32
-    master copy). ``generator`` lives on ``device``."""
+    directly on the device in ``dtype``: the compute dtype by default
+    (serving needs no f32 master copy), ``torch.float32`` for training's
+    master parameters. ``generator`` lives on ``device``."""
     c = config
     device = resolve_device(device)
     dtype = c.dtype if dtype is None else dtype
@@ -121,6 +140,13 @@ def cast(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, dict):
         return {k: cast(v, dtype) for k, v in tree.items()}
     return tree if tree.dtype == torch.int8 else tree.to(dtype)
+
+
+def leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a parameter tree, in its (insertion) order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    return [tree]
 
 
 def layer(layers: Params, i: int) -> Params:
@@ -169,17 +195,46 @@ def _block(x: torch.Tensor, layer: Params, config: TransformerConfig) -> torch.T
     return x + (F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])) @ layer["w_down"]
 
 
-@torch.inference_mode()
+def _remat_policy(name: str) -> Callable:
+    """A config's remat_policy as a ``checkpoint`` ``context_fn`` ("full":
+    recompute everything). The selective policies keep the outputs of the
+    ops they name: ``aten.mm`` for "dots" (every product of the block with
+    a weight is a 2-D ``mm`` after ``matmul`` folds the batch), the flash
+    forward op for "flash". Where the flash op never runs (short sequences)
+    "flash" keeps nothing and is "full", as in the JAX package."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {name!r}; one of {sorted(REMAT_POLICIES)}")
+    if name == "full":
+        return noop_context_fn
+    saved = {"dots": [torch.ops.aten.mm.default], "flash": [torch.ops.hived.flash_fwd.default]}
+    ops = [op for part in name.split("+") for op in saved[part]]
+    return functools.partial(create_selective_checkpoint_contexts, ops)
+
+
+def _unstack(layers: Params) -> List[Params]:
+    """Per-layer views of the stacked leaves, one ``unbind`` a leaf: the
+    backward stacks the layer gradients once, instead of scattering each
+    into its own zero ``[L, ...]`` tensor as indexing would."""
+    cols = {k: v.unbind(0) for k, v in layers.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: col[i] for k, col in cols.items()} for i in range(n)]
+
+
 def forward_hidden(
     params: Params, tokens: torch.Tensor, config: TransformerConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final normed hidden states [B, S, D] (compute dtype) and the LM-head
-    weight [D, V]."""
+    weight [D, V]. Differentiable: with ``config.remat`` each block is
+    checkpointed under ``config.remat_policy`` when autograd records."""
     c = config
-    params = cast(params, c.dtype)
+    context_fn = _remat_policy(c.remat_policy) if c.remat else None
+    params = cast(params, c.dtype)  # f32 master -> compute dtype
     x = params["embed"][tokens]
-    for i in range(c.n_layers):
-        x = _block(x, layer(params["layers"], i), c)
+    for lp in _unstack(params["layers"]):
+        if c.remat and torch.is_grad_enabled():
+            x = checkpoint(_block, x, lp, c, use_reentrant=False, context_fn=context_fn)
+        else:
+            x = _block(x, lp, c)
     x = rms_norm(x, params["ln_f"])
     head = params["embed"].T if c.tied_embeddings else params["lm_head"]
     return x, head
@@ -190,5 +245,4 @@ def forward(
 ) -> torch.Tensor:
     """Logits [B, S, V] in f32; ``tokens`` [B, S] int."""
     x, head = forward_hidden(params, tokens, config)
-    with torch.inference_mode():
-        return (x @ head).float()
+    return (x @ head).float()

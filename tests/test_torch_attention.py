@@ -1,7 +1,8 @@
 """The port's attention ops (hivedscheduler_tpu_torch.ops.attention) against
 the JAX package's, on the CPU in f32: the same numpy inputs go through both.
-The flash kernel itself needs a CUDA card: see test_torch_cuda.py."""
+The flash kernels themselves need a CUDA card: see test_torch_cuda.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,9 +12,16 @@ from hivedscheduler_tpu.ops import attention as JA
 from hivedscheduler_tpu_torch.ops import _build
 from hivedscheduler_tpu_torch.ops import attention as TA
 
-# The JAX package's own tolerance for its f32 attention paths
-# (tests/test_flash_attention.py).
+# The JAX package's own tolerances for its f32 attention paths
+# (tests/test_flash_attention.py): values rtol 2e-4 / atol 2e-5, gradients
+# max |delta| / max |ref| < 1e-4.
 RTOL, ATOL = 2e-4, 2e-5
+GRAD_TOL = 1e-4
+
+
+def rel_err(ref, got) -> float:
+    ref, got = np.asarray(ref, dtype=np.float32), np.asarray(got, dtype=np.float32)
+    return float(np.abs(ref - got).max()) / (float(np.abs(ref).max()) + 1e-6)
 
 
 def make_qkv(seed, b=2, sq=48, sk=48, h=4, hkv=2, d=32):
@@ -153,4 +161,113 @@ def test_build_target_tracks_source(tmp_path):
     b.write_text("// two")
     assert _build._target(a) != _build._target(b)
     assert _build._target(a).parent == _build.BUILD_DIR
-    assert [s.name for s in _build.sources()] == ["flash_fwd.cu"]
+    assert [s.name for s in _build.sources()] == ["flash_bwd.cu", "flash_fwd.cu"]
+
+
+# ---------------------------------------------------------------- backward
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hkv", [(2, 2), (4, 2)])
+def test_flash_gradients_match_jax_kernels(jax_interpret, causal, h, hkv):
+    # Through the autograd Function on the port's side, jax.grad through the
+    # custom_vjp (Pallas backward kernels in interpret mode) on the JAX side.
+    q, k, v = make_qkv(8, b=1, sq=256, sk=256, h=h, hkv=hkv, d=64)
+    w = np.random.default_rng(9).standard_normal(q.shape, dtype=np.float32)
+    ref = jax.grad(
+        lambda q, k, v: jnp.sum(JA.flash_attention_tpu(q, k, v, causal, None, 128, 128) * w),
+        argnums=(0, 1, 2),
+    )(*both(q, k, v)[0])
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    (TA.flash_attention_autograd(tq, tk, tv, causal) * torch.from_numpy(w)).sum().backward()
+    for r, t in zip(ref, (tq, tk, tv)):
+        assert t.grad.shape == t.shape
+        assert rel_err(r, t.grad.numpy()) < GRAD_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_reference_matches_jax_bwd(jax_interpret, causal):
+    # The plain version of both backward kernels against the JAX backward
+    # residual path (_flash_bwd: Pallas kernels, then the GQA group-sum).
+    q, k, v = make_qkv(10, b=2, sq=256, sk=256, h=4, hkv=2, d=64)
+    do = np.random.default_rng(11).standard_normal(q.shape, dtype=np.float32)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = both(q, k, v, do)
+    _, residuals = JA._flash_fwd(jq, jk, jv, causal, None, 128, 128)
+    ref = JA._flash_bwd(causal, None, 128, 128, None, None, residuals, jdo)
+    out, lse = TA.flash_attention(tq, tk, tv, causal)
+    got = TA.flash_attention_bwd_reference(tq, tk, tv, out, lse, tdo, causal)
+    for r, g in zip(ref, got):
+        assert g.shape == r.shape
+        assert rel_err(r, g.numpy()) < GRAD_TOL
+
+
+def test_flash_bwd_delta_is_rowsum():
+    _, (tq, _, _) = both(*make_qkv(12, b=2, sq=8, sk=8, h=4))
+    do = torch.randn(tq.shape, generator=torch.Generator().manual_seed(0))
+    delta = TA.flash_bwd_delta(tq, do)
+    assert delta.shape == (8, 8) and delta.dtype == torch.float32
+    expected = (tq * do).sum(-1).permute(0, 2, 1).reshape(8, 8)
+    np.testing.assert_allclose(delta.numpy(), expected.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_flash_bwd_on_cpu_is_the_plain_version_and_counts_no_launch():
+    _, (tq, tk, tv) = both(*make_qkv(13, b=1, sq=300, sk=300, h=4, hkv=2))
+    do = torch.randn(tq.shape, generator=torch.Generator().manual_seed(1))
+    out, lse = TA.flash_attention(tq, tk, tv)
+    before = (TA.flash_bwd_dkdv.launches, TA.flash_bwd_dq.launches)
+    got = TA.flash_attention_bwd(tq, tk, tv, out, lse, do)
+    ref = TA.flash_attention_bwd_reference(tq, tk, tv, out, lse, do)
+    assert (TA.flash_bwd_dkdv.launches, TA.flash_bwd_dq.launches) == before
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_mha_gradients_match_the_reference_path():
+    # The kernels' path (S >= 256) against autograd through mha_reference.
+    q, k, v = make_qkv(14, b=1, sq=300, sk=300, h=4, hkv=2)
+    grads = []
+    for fn in (TA.mha, TA.mha_reference):
+        ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+        (fn(*ts, causal=True) ** 2).sum().backward()
+        grads.append([t.grad.numpy() for t in ts])
+    for a, b in zip(*grads):
+        assert rel_err(b, a) < GRAD_TOL
+
+
+def test_bwd_kernels_refuse_other_devices():
+    q = torch.empty(1, 256, 2, 32, device="meta")
+    lse = torch.empty(2, 256, device="meta")
+    before = (TA.flash_bwd_dkdv.launches, TA.flash_bwd_dq.launches)
+    with pytest.raises(ValueError):
+        TA.flash_bwd_dkdv(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError):
+        TA.flash_bwd_dq(q, q, q, q, lse, lse)
+    assert (TA.flash_bwd_dkdv.launches, TA.flash_bwd_dq.launches) == before
+
+
+@pytest.mark.parametrize(
+    "what", ["lse_shape", "lse_dtype", "do_dtype", "head_dim"],
+)
+def test_bwd_kernel_args_refused(what):
+    b, s, h, hkv, d = 1, 256, 4, 2, 64
+    q, do = torch.zeros(b, s, h, d), torch.zeros(b, s, h, d)
+    k = v = torch.zeros(b, s, hkv, d)
+    lse = delta = torch.zeros(b * h, s)
+    if what == "lse_shape":
+        lse = torch.zeros(b * h, s + 1)
+    elif what == "lse_dtype":
+        lse = lse.double()
+    elif what == "do_dtype":
+        do = do.double()
+    else:
+        q = do = torch.zeros(b, s, h, 48)
+        k = v = torch.zeros(b, s, hkv, 48)
+    with pytest.raises(ValueError):
+        TA._bwd_kernel_args(q, k, v, do, lse, delta)
+
+
+def test_forward_op_is_the_plain_version_on_cpu():
+    _, (tq, tk, tv) = both(*make_qkv(15, b=1, sq=256, sk=256))
+    out, lse = torch.ops.hived.flash_fwd(tq, tk, tv, True, 0.25)
+    ref_out, ref_lse = TA.flash_attention_reference(tq, tk, tv, True, 0.25)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)

@@ -15,7 +15,8 @@ from hivedscheduler_tpu_torch.ops import attention as TA
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the flash kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -61,3 +62,63 @@ def test_cuda_tiny_prefill_matches_cpu(cuda_device):
     ref, _ = generate.prefill(params, prompt, generate.init_cache(config, 2, 256, "cpu"), config)
     # f32 throughout; sums in another order than the CPU's.
     torch.testing.assert_close(logits.cpu(), ref, rtol=0, atol=1e-4)
+
+
+def _rel(got, ref) -> float:
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "s,causal,dtype,tol",
+    # bf16: the kernels round P and dS to bf16 before three of their
+    # products, where the plain version keeps f32 (reason in chip_smoke.py).
+    [(2048, True, torch.bfloat16, 2e-2), (1000, True, torch.bfloat16, 2e-2),
+     (1000, True, torch.float32, 1e-4)],
+)
+def test_cuda_flash_bwd_kernels_match_plain(cuda_device, s, causal, dtype, tol):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v, do = (
+        torch.randn(1, s, heads, 128, device=cuda_device, dtype=dtype, generator=gen)
+        for heads in (32, 8, 8, 32)
+    )
+    out, lse = TA.flash_attention(q, k, v, causal)
+    delta = TA.flash_bwd_delta(out, do)
+    before = (TA.flash_bwd_dkdv.launches, TA.flash_bwd_dq.launches)
+    dk, dv = TA.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    dq = TA.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (TA.flash_bwd_dkdv.launches, TA.flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    ref_dk, ref_dv = TA.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal)
+    ref_dq = TA.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert _rel(got, ref) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_train_step_matches_cpu(cuda_device):
+    # The training step on the card (f32 kernels, head_dim 32, remat
+    # "flash") against the same step on the CPU (the plain versions).
+    import dataclasses
+
+    from hivedscheduler_tpu_torch.models import convert, train, transformer
+
+    config = dataclasses.replace(transformer.tiny(), remat=True, remat_policy="flash")
+    cpu = transformer.init(config, torch.Generator().manual_seed(0), "cpu")
+    card = convert.params_from_jax(convert.params_to_numpy(cpu), device=cuda_device)
+    toks = torch.randint(0, config.vocab_size, (2, 256), generator=torch.Generator().manual_seed(1))
+    losses, grads = [], []
+    for params, device in ((cpu, "cpu"), (card, cuda_device)):
+        opt = train.make_optimizer(params)
+        before = TA.flash_bwd_dq.launches
+        losses.append([float(train.train_step(params, opt, toks, config, device))])
+        grads.append([t.grad.detach().cpu().clone() for t in transformer.leaves(params)])
+        losses[-1].append(float(train.train_step(params, opt, toks, config, device)))
+    assert TA.flash_bwd_dq.launches == before + 2 * config.n_layers
+    # f32 throughout, sums in another order. What is compared: the losses
+    # and the step-1 gradients (the JAX package's 1e-4 of max), not the
+    # parameters: Adam moves a near-zero gradient of opposite sign 2 lr apart.
+    torch.testing.assert_close(torch.tensor(losses[1]), torch.tensor(losses[0]), rtol=0, atol=1e-4)
+    for a, b in zip(*grads):
+        assert _rel(b, a) < 1e-4

@@ -12,7 +12,8 @@ import torch
 
 import hivedscheduler_tpu_torch as port
 from hivedscheduler_tpu_torch import serve
-from hivedscheduler_tpu_torch.models import generate, transformer
+from hivedscheduler_tpu_torch import train as train_entry
+from hivedscheduler_tpu_torch.models import generate, train, transformer
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "hivedscheduler_tpu_torch"
@@ -31,6 +32,9 @@ def test_import_pulls_in_no_jax():
     mods = submodules()
     assert "hivedscheduler_tpu_torch.ops.attention" in mods
     assert "hivedscheduler_tpu_torch.serve" in mods
+    assert "hivedscheduler_tpu_torch.train" in mods
+    assert "hivedscheduler_tpu_torch.models.train" in mods
+    assert "hivedscheduler_tpu_torch.models.perf" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -71,3 +75,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
         transformer.init(transformer.tiny(), torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
         generate.init_cache(transformer.tiny(), 1, 8)
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_entry.main(["--model", "tiny", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_entry.build("tiny", seed=0)
+    config = transformer.tiny()
+    params = transformer.init(config, torch.Generator(), device="cpu")
+    opt = train.make_optimizer(params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train_step(params, opt, torch.zeros(1, 8, dtype=torch.long), config)
