@@ -15,7 +15,10 @@ script exits non-zero:
              below; times the kernel, the plain version and the library call
              that computes the same function (a yardstick only: the port
              never calls it). The backward kernels, and the forward again,
-             are checked and timed at the training shape, B1 S8192.
+             are checked and timed at the training shape, B1 S8192, where
+             a second launch must give bitwise-equal gradients; the
+             backward's edge cases add B2 at S8192 and at a ragged S1000,
+             S100 (shorter than one tile) and D64 non-causal.
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
              tokens through the serving entry point. Launch counts are set
@@ -242,10 +245,10 @@ def phase_kernels(seed: int) -> dict:
     return main
 
 
-def time_bwd(q, k, v, do, lse, delta, causal) -> dict:
-    """Device times of the two backward kernels, their plain versions (one
-    call after one warm-up: the allocator's cache was just emptied) and
-    SDPA's whole backward, with each kernel's bound."""
+def time_bwd(q, k, v, out, do, lse, delta, causal) -> dict:
+    """Device times of the Delta pre-pass, the two backward kernels, their
+    plain versions (one call after one warm-up: the allocator's cache was
+    just emptied) and SDPA's whole backward, with each kernel's bound."""
     import torch
     import torch.nn.functional as F
 
@@ -254,6 +257,9 @@ def time_bwd(q, k, v, do, lse, delta, causal) -> dict:
     b, s, h, d = q.shape
     hkv = k.shape[2]
     times = {}
+    # The Delta pre-pass runs before both kernels; SDPA's backward includes
+    # its own.
+    delta_ms = cuda_ms(lambda: A.flash_bwd_delta(out, do), 5)
     for kind, kernel, plain in (
         ("dkdv", A.flash_bwd_dkdv, A.flash_bwd_dkdv_reference),
         ("dq", A.flash_bwd_dq, A.flash_bwd_dq_reference),
@@ -274,10 +280,11 @@ def time_bwd(q, k, v, do, lse, delta, causal) -> dict:
     times["library_ms"] = cuda_ms(
         lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 5
     )
+    kernels_ms = times["dkdv"]["ms"] + times["dq"]["ms"]
     log("kernels", case="bwd_timing", shape=[b, s, h, hkv, d], causal=causal,
         dtype=str(q.dtype).replace("torch.", ""), dkdv=times["dkdv"], dq=times["dq"],
-        sdpa_backward_ms=times["library_ms"],
-        kernels_sum_ms=times["dkdv"]["ms"] + times["dq"]["ms"])
+        delta_ms=delta_ms, sdpa_backward_ms=times["library_ms"], kernels_sum_ms=kernels_ms,
+        kernels_sum_with_delta_ms=kernels_ms + delta_ms)
     return times
 
 
@@ -290,11 +297,16 @@ def phase_kernels_bwd(seed: int) -> dict:
 
     from hivedscheduler_tpu_torch.ops import attention as A
 
-    # (name, B, S, H, Hkv, D, causal, dtype)
+    # (name, B, S, H, Hkv, D, causal, dtype). B2 and the ragged and short
+    # lengths catch a tile that reads across a batch or past S.
     cases = [
         ("bwd_main_path", TRAIN["batch"], TRAIN["seq"], 32, 8, 128, True, torch.bfloat16),
+        ("bwd_b2_causal", 2, TRAIN["seq"], 32, 8, 128, True, torch.bfloat16),
+        ("bwd_b2_ragged_causal", 2, 1000, 32, 8, 128, True, torch.bfloat16),
         ("bwd_ragged_causal", 1, 1000, 32, 8, 128, True, torch.bfloat16),
+        ("bwd_short_causal", 2, 100, 8, 2, 128, True, torch.bfloat16),
         ("bwd_full", 1, 2048, 32, 8, 128, False, torch.bfloat16),
+        ("bwd_bf16_full_d64", 2, 1000, 8, 2, 64, False, torch.bfloat16),
         ("bwd_f32_ragged_causal_d64", 1, 1000, 8, 2, 64, True, torch.float32),
         ("bwd_f32_full_d128", 1, 512, 8, 2, 128, False, torch.float32),
         ("bwd_bf16_causal_d32", 1, 300, 4, 2, 32, True, torch.bfloat16),
@@ -314,6 +326,14 @@ def phase_kernels_bwd(seed: int) -> dict:
         if name == "bwd_main_path":
             main["fwd"] = check_fwd("fwd_train_path", q, k, v, causal, out, lse)
             log("kernels", **main["fwd"])
+            # No atomics: a second launch gives the same bits.
+            dk2, dv2 = A.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+            dq2 = A.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+            torch.cuda.synchronize()
+            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)):
+                raise AssertionError("backward kernels: two launches on the same inputs differ")
+            log("kernels", case="bwd_repeat_bitwise_equal", shape=[b, s, h, hkv, d])
+            del dk2, dv2, dq2
         ref_dk, ref_dv = A.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal)
         ref_dq = A.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
         tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD_F32
@@ -338,7 +358,7 @@ def phase_kernels_bwd(seed: int) -> dict:
         if name == "bwd_main_path":
             main["dkdv_max_abs_err"] = max(fields["dk_max_abs_err"], fields["dv_max_abs_err"])
             main["dq_max_abs_err"] = fields["dq_max_abs_err"]
-            main.update(time_bwd(q, k, v, do, lse, delta, causal))
+            main.update(time_bwd(q, k, v, out, do, lse, delta, causal))
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return main

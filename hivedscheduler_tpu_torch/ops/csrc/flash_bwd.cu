@@ -12,65 +12,68 @@
 // What bounds it on an H100: at the training shape (B1 S8192 H32 Hkv8 D128,
 // causal, bf16) the dK/dV kernel does 8*D FLOPs per kept (q, k) pair and the
 // dQ kernel 6*D, against q/k/v/dO bytes some 1000x smaller: both are bound by
-// operations (989 TFLOP/s dense bf16 tensor cores).
+// operations (989 TFLOP/s dense bf16 tensor cores), so the design is about
+// keeping the tensor cores fed.
 // Design, and how it differs from the Pallas kernels:
 //   - Nothing is carried between blocks. The TPU kernels carry f32
 //     accumulators across a sequential grid axis; here each block owns its
 //     output tile and loops over the other axis itself, the accumulators in
 //     registers:
-//       dK/dV: one block per (b, KV head, 64-key tile). It sweeps every query
-//              head of its KV head's group and every query tile that the
+//       dK/dV: one block per (b, KV head, 128-key tile). It sweeps every query
+//              head of its KV head's group and every 64-query tile that the
 //              causal mask keeps, so the GQA group-sum of _flash_bwd is done
 //              in registers: no atomics, no f32 [B*H, S, D] scratch.
-//       dQ:    one block per (b, query head, 64-query tile), sweeping the key
-//              tiles up to the diagonal.
-//   - GQA reads KV head h / (H / Hkv) in place; no K/V repeat. All tensors
-//     stay in the model's [B, S, H, D] layout.
-//   - bf16: the products on the tensor cores with mma.sync m16n8k16 (f32
-//     accumulate). S and dP fragments stay in registers and are repacked as
-//     bf16 A operands, so P and dS are rounded to bf16 before P^T dO,
-//     dS^T Q and dS K (as FlashAttention-2 does; the JAX kernels keep them in
-//     f32). dK and dV are summed in f32 and written in k's dtype, dQ in q's.
-//   - Registers bound the tiles at D = 128: the dK/dV block keeps 2 x 64 f32
-//     accumulators a thread, so it takes 32-query steps (S^T and dP^T
-//     fragments of 16 keys x 32 queries a warp); K, V, Q and dO tiles sit in
-//     shared memory and the A fragments are read from it per product.
-//     ptxas -v (nvcc 12.8, sm_90a): dK/dV bf16<128> 248 registers and dQ
-//     bf16<128> 167, no spills; of all instances only the f32 dK/dV<32>
-//     spills (4 bytes).
-//   - The ragged last tile is masked (no (8, 128) alignment rule).
+//       dQ:    one block per (b, query head, 128-query tile), sweeping the
+//              64-key tiles up to the diagonal, heaviest tiles launched first.
+//     Two kernels and no atomics keep the gradients bitwise reproducible.
+//   - bf16 (warp-specialised): 384 threads. Two consumer warpgroups each own
+//     64 of the block's rows and issue wgmma (m64nNk16, f32 accumulate); one
+//     producer warp keeps a kStages-deep ring of the swept tiles (Q and dO,
+//     or K and V) in flight with TMA, completion and release tracked by
+//     mbarriers, and the dK/dV producer also copies each step's LSE and
+//     Delta. setmaxnreg moves registers from the producer (24) to the
+//     consumers (240). The block's own tiles (K and V, or Q and dO) arrive
+//     once by TMA.
+//   - Tiles sit in shared memory as TMA writes them and wgmma reads them:
+//     the hardware swizzle over 128-byte rows (64-byte rows at D = 32), a
+//     D = 128 tile as two 64-column boxes. A 4-D tensor map over
+//     [B, S, heads, D] makes rows at or past S arrive as zeros, never as the
+//     next batch's rows.
+//   - Products: S (or S^T) and dP (dP^T) take both operands from shared
+//     memory, K-major. dV += P^T dO, dK += dS^T Q and dQ += dS K take P and
+//     dS from the accumulator registers, rounded to bf16 and repacked as the
+//     A operand in registers, and read dO, Q or K MN-major through wgmma's
+//     transpose flag. P and dS are thus rounded to bf16 before those three
+//     products (as FlashAttention-2 does; the JAX kernels keep them in f32).
+//     dK and dV are summed in f32 and written in k's dtype, dQ in q's.
+//     No thread writes shared memory that wgmma reads, so no proxy fence is
+//     needed; only LSE and Delta go through the generic proxy, ordered by the
+//     ring's mbarriers.
+//   - Masking: only tiles on the diagonal or the ragged edge pay for the
+//     mask (-1e30 in the reference, here P = 0); a warpgroup whose 64 rows
+//     see none of a step's columns skips the step's products.
 //   - f32: the same algorithm with scalar FMAs (four threads a row), so the
 //     card can hold the algorithm itself against the plain version at f32
 //     tolerance.
+// ptxas -v (nvcc 12.9, sm_90a): every bf16 instance enters with 168
+// registers a thread (the bound for 384 threads) and no spills; setmaxnreg
+// then gives the producer warpgroup 24 and the consumers 240. Of all
+// instances only the f32 dK/dV<32> spills (4 bytes).
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W, at
-// B1 S8192 H32 Hkv8 D128 causal bf16: dK/dV 7.405 ms (bound 1.112 ms, 15%),
-// dQ 4.221 ms (bound 0.834 ms, 20%), against 2.598 ms for SDPA's whole
-// backward. wgmma, TMA, ldmatrix and warp specialisation are left for later
-// work.
+// B1 S8192 H32 Hkv8 D128 causal bf16 (bounds 1.112 and 0.834 ms): dK/dV
+// 1.815 ms (61% of its bound), dQ 1.513 ms (55%), against 2.613 ms for
+// SDPA's whole backward. The previous mma.sync design (64-row blocks,
+// synchronous loads, B fragments gathered element by element) took
+// 7.445 ms and 4.179 ms.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // the mask value of the reference, not -inf
-constexpr int kThreads = 128;
-
-// ---------------------------------------------------------------- bf16 path
-constexpr int kTile = 64;     // keys per dK/dV block; queries per dQ block and
-                              // keys per dQ sweep step (16 rows a warp)
-constexpr int kQStep = 32;    // queries per dK/dV sweep step
-constexpr int kPad = 8;       // bf16 elements of row padding in shared memory
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kThreads = 128;  // f32 path
 
 // Two floats to one register of two bf16; `lo` takes the lower column.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -78,302 +81,588 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// ---------------------------------------------------------------- bf16 path
+constexpr int kWarpgroup = 128;               // threads
+constexpr int kBf16Threads = 3 * kWarpgroup;  // consumer warpgroups 0 and 1, producer 2
+constexpr int kConsumerWarps = 8;
+constexpr int kBlockRows = 128;  // keys a dK/dV block owns, queries a dQ block owns
+constexpr int kStepRows = 64;    // queries (dK/dV) or keys (dQ) one ring stage holds
+constexpr int kStages = 3;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// A rows x D bf16 tile in shared memory is D / kCols column blocks, each
+// rows x kSwizzle bytes in the hardware's kSwizzle-byte swizzle.
+template <int D>
+struct Tile {
+  static constexpr int kSwizzle = D >= 64 ? 128 : 64;
+  static constexpr int kCols = kSwizzle / 2;
+  static constexpr int kBlocks = D / kCols;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-// The m16n8k16 A fragment of rows [r0, r0 + 8) and [r0 + 8, r0 + 16), columns
-// [c0, c0 + 16) of a row-major tile in shared memory (tig: the thread's first
-// column within an 8-column half).
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* tile,
-                                       int r0, int c0, int tig) {
-  a[0] = ld32(tile + r0 * LD + c0 + tig);
-  a[1] = ld32(tile + (r0 + 8) * LD + c0 + tig);
-  a[2] = ld32(tile + r0 * LD + c0 + tig + 8);
-  a[3] = ld32(tile + (r0 + 8) * LD + c0 + tig + 8);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
 
-// Four C fragments of 8 columns each, as the A fragments of two k-steps of
-// 16: n-tiles 2*kk and 2*kk + 1 become k-step kk.
-__device__ __forceinline__ void repack_a(uint32_t a[4], const float c0[4],
-                                         const float c1[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// Copy rows [row0, row0 + ROWS) of one head into shared memory, 16 bytes a
-// thread; rows at or past S are filled with zeros.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// A ROWS x D tile of one head, rows from row0 of batch b, as the map's boxes
+// of kCols columns; completion is counted on `bar`. Rows past S are zeros.
 template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          size_t row_stride, int row0, int S) {
-  constexpr int kChunks = D / 8;
-  constexpr int kLd = D + kPad;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
+__device__ __forceinline__ void tma_tile(const CUtensorMap* map, uint32_t dst, uint64_t* bar,
+                                         int head, int row0, int b) {
+#pragma unroll
+  for (int blk = 0; blk < Tile<D>::kBlocks; ++blk) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst + blk * ROWS * Tile<D>::kSwizzle),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(blk * Tile<D>::kCols),
+        "r"(head), "r"(row0), "r"(b)
+        : "memory");
   }
 }
 
-// acc[j] += A * B over k = 16 * KSTEPS rows of a row-major [k][D] tile B in
-// shared memory (B's columns are the output columns): the B fragments are
-// two strided pairs, gathered element by element.
-template <int D, int KSTEPS>
-__device__ __forceinline__ void mma_a_regs_b_rows(float acc[][4], const float c[][4],
-                                                  const __nv_bfloat16* tile,
-                                                  int grp, int tig) {
-  constexpr int kLd = D + kPad;
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    uint32_t a[4];
-    repack_a(a, c[2 * kk], c[2 * kk + 1]);
-    const __nv_bfloat16* row = tile + (kk * 16 + tig) * kLd + grp;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const __nv_bfloat16* p = row + j * 8;
-      mma_bf16_16816(acc[j], a, pack_raw(p[0], p[kLd]), pack_raw(p[8 * kLd], p[9 * kLd]));
-    }
-  }
+// The wgmma descriptor of a swizzled tile at shared address `addr`: leading
+// byte offset `lbo` (MN-major: from one column block to the next), stride
+// byte offset 8 rows.
+template <int D>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  constexpr uint64_t kMode = Tile<D>::kSwizzle == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>((8 * Tile<D>::kSwizzle) >> 4) << 32) | (kMode << 62);
 }
 
-// c[j] = A B^T for N columns, where A is rows r0.. of tile `a_tile` and B^T's
-// columns are the rows of tile `b_tile` (both row-major [rows][D]).
-template <int D, int N>
-__device__ __forceinline__ void mma_rows_rows(float c[][4], const __nv_bfloat16* a_tile,
-                                              const __nv_bfloat16* b_tile, int r0,
-                                              int grp, int tig) {
-  constexpr int kLd = D + kPad;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the wgmma's issue or wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// wgmma m64nNk16, bf16 in, f32 accumulate. _ss: A and B K-major in shared
+// memory (accumulate 0 overwrites d). _rs: A in registers, B MN-major in
+// shared memory (the transpose flag), d accumulated.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// c (64 x 64) = A B^T over D columns: A the 64 rows from row a_row0 of an
+// a_rows-row tile at a, B the kStepRows-row tile at b, both K-major.
+template <int D>
+__device__ __forceinline__ void gemm_abt(float (&c)[32], uint32_t a, int a_rows, int a_row0,
+                                         uint32_t b) {
+  using T = Tile<D>;
+  constexpr int kPerBlock = T::kCols / 16;  // k-steps of 16 columns in a column block
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a<kLd>(a, a_tile, r0, kk * 16, tig);
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const __nv_bfloat16* brow = b_tile + (j * 8 + grp) * kLd + kk * 16 + tig;
-      mma_bf16_16816(c[j], a, ld32(brow), ld32(brow + 8));
-    }
+    const uint32_t blk = kk / kPerBlock, k_off = (kk % kPerBlock) * 32;
+    const uint64_t da =
+        smem_desc<D>(a + blk * a_rows * T::kSwizzle + a_row0 * T::kSwizzle + k_off, 16);
+    const uint64_t db = smem_desc<D>(b + blk * kStepRows * T::kSwizzle + k_off, 16);
+    wgmma_ss(c, da, db, kk > 0);
   }
 }
 
+// acc (64 x D) += A B: A (64 x 64) in registers as four k-steps, B the
+// kStepRows x D tile at b read MN-major.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
+__device__ __forceinline__ void gemm_rs(float (&acc)[D / 2], const uint32_t (&a)[16], uint32_t b) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < kStepRows / 16; ++kk) {
+    wgmma_rs(acc, a + 4 * kk, smem_desc<D>(b + kk * 16 * T::kSwizzle, kStepRows * T::kSwizzle));
+  }
+}
+
+// A 64 x 64 accumulator (element 4j + 2i + e at row r + 8i, column 8j + c + e)
+// as the bf16 A operand of four k16 steps, which takes the same rows and
+// columns: step kk is accumulator blocks 2kk and 2kk + 1.
+__device__ __forceinline__ void to_a_operand(uint32_t (&a)[16], const float (&c)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(c[2 * i], c[2 * i + 1]);
+}
+
+// Shared memory of the dK/dV block, in bytes from a 1024-aligned base.
+template <int D>
+struct DkdvSmem {
+  static constexpr int kKV = kBlockRows * D * 2;  // K or V
+  static constexpr int kQ = kStepRows * D * 2;    // Q or dO of one stage
+  static constexpr int kK = 0, kV = kKV;
+  static constexpr int kRing = 2 * kKV;  // stage s: Q at kRing + 2 s kQ, dO after it
+  static constexpr int kLse = kRing + kStages * 2 * kQ;  // [kStages][kStepRows] f32
+  static constexpr int kDelta = kLse + kStages * kStepRows * 4;
+  static constexpr int kBar = kDelta + kStages * kStepRows * 4;  // full, empty, K/V
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv,
                            int S, int H, int Hkv, int causal, float scale) {
-  constexpr int kLd = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kTile * kLd;
-  __nv_bfloat16* sQ = sV + kTile * kLd;
-  __nv_bfloat16* sdO = sQ + kQStep * kLd;
-  float* sLse = reinterpret_cast<float*>(sdO + kQStep * kLd);
-  float* sDelta = sLse + kQStep;
+  using M = DkdvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  float* s_lse = reinterpret_cast<float*>(smem + M::kLse);
+  float* s_delta = reinterpret_cast<float*>(smem + M::kDelta);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + M::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_ready = empty + kStages;
 
-  const int k0 = blockIdx.x * kTile;  // the first key tile sweeps the most
-  const int b = blockIdx.y / Hkv;
-  const int hk = blockIdx.y % Hkv;
+  const int b = blockIdx.x / Hkv;
+  const int hk = blockIdx.x % Hkv;
+  const int k0 = blockIdx.y * kBlockRows;  // launched first, the first key tiles sweep the most
   const int groups = H / Hkv;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int grp = lane / 4;
-  const int tig = (lane % 4) * 2;
-  const int r0 = warp * 16 + grp;  // key row of fragment elements 0, 1
-  const int kpos[2] = {k0 + r0, k0 + r0 + 8};
+  const int q_first = causal ? k0 / kStepRows : 0;  // earlier queries see no key here
+  const int n_q = (S + kStepRows - 1) / kStepRows;
 
-  const size_t q_stride = (size_t)H * D;
-  const size_t kv_stride = (size_t)Hkv * D;
-  load_tile<D, kTile>(sK, k + ((size_t)b * S * Hkv + hk) * D, kv_stride, k0, S);
-  load_tile<D, kTile>(sV, v + ((size_t)b * S * Hkv + hk) * D, kv_stride, k0, S);
-
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
-  }
-
-  const int q_first = causal ? k0 / kQStep : 0;  // earlier queries see no key here
-  const int n_steps = (S + kQStep - 1) / kQStep;
-  for (int g = 0; g < groups; ++g) {
-    const int h = hk * groups + g;
-    const __nv_bfloat16* q_head = q + ((size_t)b * S * H + h) * D;
-    const __nv_bfloat16* do_head = dout + ((size_t)b * S * H + h) * D;
-    const float* lse_row = lse + ((size_t)b * H + h) * S;
-    const float* delta_row = delta + ((size_t)b * H + h) * S;
-    for (int qs = q_first; qs < n_steps; ++qs) {
-      const int q0 = qs * kQStep;
-      __syncthreads();  // every warp is done with the previous Q/dO step
-      load_tile<D, kQStep>(sQ, q_head, q_stride, q0, S);
-      load_tile<D, kQStep>(sdO, do_head, q_stride, q0, S);
-      if (threadIdx.x < kQStep) {
-        const int qi = q0 + threadIdx.x;
-        sLse[threadIdx.x] = qi < S ? lse_row[qi] : 0.f;
-        sDelta[threadIdx.x] = qi < S ? delta_row[qi] : 0.f;
-      }
-      __syncthreads();
-
-      // P^T = exp(scale K Q^T - LSE): 16 keys x 32 queries a warp.
-      float pt[kQStep / 8][4];
-      mma_rows_rows<D, kQStep>(pt, sK, sQ, r0, grp, tig);
-      const bool need_mask = (q0 + kQStep > S) || (causal && q0 < k0 + kTile - 1);
-#pragma unroll
-      for (int j = 0; j < kQStep / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j * 8 + tig + (e & 1);
-          float p = __expf(pt[j][e] * scale - sLse[col]);
-          if (need_mask) {
-            const int qi = q0 + col;
-            if (qi >= S || (causal && qi < kpos[e >> 1])) p = 0.f;
-          }
-          pt[j][e] = p;
-        }
-      }
-      // dV += P^T dO.
-      mma_a_regs_b_rows<D, kQStep / 16>(acc_dv, pt, sdO, grp, tig);
-
-      // dS^T = P^T * (V dO^T - Delta).
-      float dst[kQStep / 8][4];
-      mma_rows_rows<D, kQStep>(dst, sV, sdO, r0, grp, tig);
-#pragma unroll
-      for (int j = 0; j < kQStep / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dst[j][e] = pt[j][e] * (dst[j][e] - sDelta[j * 8 + tig + (e & 1)]);
-        }
-      }
-      // dK += dS^T Q (times scale in the epilogue).
-      mma_a_regs_b_rows<D, kQStep / 16>(acc_dk, dst, sQ, grp, tig);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes; Q and dO add their bytes
+      mbar_init(&empty[s], kConsumerWarps);
     }
+    mbar_init(kv_ready, 1);
+    fence_mbar_init();
   }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWarpgroup;
+  const int lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // Producer: one warp keeps the ring full, Q and dO by TMA, LSE and Delta
+    // by its lanes.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= 2 * kWarpgroup + 32) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_ready, 2 * M::kKV);
+      tma_tile<D, kBlockRows>(&tm_k, base + M::kK, kv_ready, hk, k0, b);
+      tma_tile<D, kBlockRows>(&tm_v, base + M::kV, kv_ready, hk, k0, b);
+    }
+    int stage = 0, phase = 0;
+    for (int g = 0; g < groups; ++g) {
+      const int h = hk * groups + g;
+      const float* lse_row = lse + ((size_t)b * H + h) * S;
+      const float* delta_row = delta + ((size_t)b * H + h) * S;
+      for (int qt = q_first; qt < n_q; ++qt) {
+        const int q0 = qt * kStepRows;
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[stage], 2 * M::kQ);
+          const uint32_t sq = base + M::kRing + stage * 2 * M::kQ;
+          tma_tile<D, kStepRows>(&tm_q, sq, &full[stage], h, q0, b);
+          tma_tile<D, kStepRows>(&tm_do, sq + M::kQ, &full[stage], h, q0, b);
+        }
+        for (int i = lane; i < kStepRows; i += 32) {
+          const int qi = q0 + i;
+          s_lse[stage * kStepRows + i] = qi < S ? lse_row[qi] : 0.f;
+          s_delta[stage * kStepRows + i] = qi < S ? delta_row[qi] : 0.f;
+        }
+        mbar_arrive(&full[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns keys [kw0, kw0 + 64).
+    setmaxnreg_inc<kConsumerRegs>();
+    const int row = (threadIdx.x % kWarpgroup) / 32 * 16 + lane / 4;  // of elements 0, 1
+    const int col = (lane % 4) * 2;  // within each 8-column block
+    const int kw0 = k0 + wg * 64;
+    const int kpos[2] = {kw0 + row, kw0 + row + 8};
+
+    float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+    mbar_wait(kv_ready, 0);
+    int stage = 0, phase = 0;
+    for (int g = 0; g < groups; ++g) {
+      for (int qt = q_first; qt < n_q; ++qt) {
+        const int q0 = qt * kStepRows;
+        mbar_wait(&full[stage], phase);
+        if (kw0 < S && !(causal && q0 + kStepRows - 1 < kw0)) {
+          const uint32_t sq = base + M::kRing + stage * 2 * M::kQ;
+          const uint32_t sdo = sq + M::kQ;
+          const float* lse_s = s_lse + stage * kStepRows;
+          const float* delta_s = s_delta + stage * kStepRows;
+          float st[32], dpt[32];
+          wgmma_fence();
+          gemm_abt<D>(st, base + M::kK, kBlockRows, wg * 64, sq);  // S^T = K Q^T
+          wgmma_commit();
+          gemm_abt<D>(dpt, base + M::kV, kBlockRows, wg * 64, sdo);  // dP^T = V dO^T
+          wgmma_commit();
+          wgmma_wait<1>();
+          reg_fence(st);
+          // P^T = exp(scale S^T - LSE), the column's query.
+          const bool need_mask = q0 + kStepRows > S || (causal && q0 < kw0 + 63);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l = *reinterpret_cast<const float2*>(lse_s + j * 8 + col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float p = __expf(st[4 * j + e] * scale - ((e & 1) ? l.y : l.x));
+              if (need_mask) {
+                const int qi = q0 + j * 8 + col + (e & 1);
+                if (qi >= S || (causal && qi < kpos[e >> 1])) p = 0.f;
+              }
+              st[4 * j + e] = p;
+            }
+          }
+          wgmma_wait<0>();
+          reg_fence(dpt);
+          // dS^T = P^T * (dP^T - Delta).
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 d = *reinterpret_cast<const float2*>(delta_s + j * 8 + col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? d.y : d.x));
+            }
+          }
+          uint32_t pa[16], dsa[16];
+          to_a_operand(pa, st);
+          to_a_operand(dsa, dpt);
+          reg_fence(acc_dv);
+          reg_fence(acc_dk);
+          wgmma_fence();
+          gemm_rs<D>(acc_dv, pa, sdo);  // dV += P^T dO
+          gemm_rs<D>(acc_dk, dsa, sq);  // dK += dS^T Q (times scale in the epilogue)
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(acc_dv);
+          reg_fence(acc_dk);
+          reg_fence(pa);
+          reg_fence(dsa);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (kpos[i] >= S) continue;
-    const size_t off = ((size_t)b * S * Hkv + (size_t)kpos[i] * Hkv + hk) * D + tig;
+    for (int i = 0; i < 2; ++i) {
+      if (kpos[i] >= S) continue;
+      const size_t off = ((size_t)b * S * Hkv + (size_t)kpos[i] * Hkv + hk) * D + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + off + j * 8) =
-          pack_bf16(acc_dk[j][2 * i] * scale, acc_dk[j][2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + j * 8) =
-          pack_bf16(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + off + j * 8) =
+            pack_bf16(acc_dk[4 * j + 2 * i] * scale, acc_dk[4 * j + 2 * i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + j * 8) =
+            pack_bf16(acc_dv[4 * j + 2 * i], acc_dv[4 * j + 2 * i + 1]);
+      }
     }
   }
 }
 
+// Shared memory of the dQ block, in bytes from a 1024-aligned base.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
+struct DqSmem {
+  static constexpr int kQ = kBlockRows * D * 2;  // Q or dO
+  static constexpr int kKV = kStepRows * D * 2;  // K or V of one stage
+  static constexpr int kQo = 0, kDo = kQ;
+  static constexpr int kRing = 2 * kQ;  // stage s: K at kRing + 2 s kKV, V after it
+  static constexpr int kBar = kRing + kStages * 2 * kKV;  // full, empty, Q/dO
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dq,
                          int S, int H, int Hkv, int causal, float scale) {
-  constexpr int kLd = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + kTile * kLd;
-  __nv_bfloat16* sK = sdO + kTile * kLd;
-  __nv_bfloat16* sV = sK + kTile * kLd;
+  using M = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + M::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_ready = empty + kStages;
 
-  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal tile first
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int hk = h / (H / Hkv);
-  const int q0 = qb * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int grp = lane / 4;
-  const int tig = (lane % 4) * 2;
-  const int r0 = warp * 16 + grp;  // query row of fragment elements 0, 1
-  const int qpos[2] = {q0 + r0, q0 + r0 + 8};
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;  // heaviest causal tile first
+  int n_k = (S + kStepRows - 1) / kStepRows;
+  if (causal) n_k = min(n_k, (q0 + kBlockRows - 1) / kStepRows + 1);
 
-  const size_t q_stride = (size_t)H * D;
-  const size_t kv_stride = (size_t)Hkv * D;
-  const __nv_bfloat16* k_head = k + ((size_t)b * S * Hkv + hk) * D;
-  const __nv_bfloat16* v_head = v + ((size_t)b * S * Hkv + hk) * D;
-  load_tile<D, kTile>(sQ, q + ((size_t)b * S * H + h) * D, q_stride, q0, S);
-  load_tile<D, kTile>(sdO, dout + ((size_t)b * S * H + h) * D, q_stride, q0, S);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse_r[i] = qpos[i] < S ? lse[(size_t)bh * S + qpos[i]] : 0.f;
-    delta_r[i] = qpos[i] < S ? delta[(size_t)bh * S + qpos[i]] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init(q_ready, 1);
+    fence_mbar_init();
   }
+  __syncthreads();
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  int n_tiles = (S + kTile - 1) / kTile;
-  if (causal) n_tiles = min(n_tiles, (q0 + kTile - 1) / kTile + 1);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, kTile>(sK, k_head, kv_stride, k0, S);
-    load_tile<D, kTile>(sV, v_head, kv_stride, k0, S);
-    __syncthreads();
-
-    // P = exp(scale Q K^T - LSE): 16 queries x 64 keys a warp.
-    float p[kTile / 8][4];
-    mma_rows_rows<D, kTile>(p, sQ, sK, r0, grp, tig);
-    const bool need_mask = (k0 + kTile > S) || (causal && k0 + kTile - 1 > q0);
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = __expf(p[j][e] * scale - lse_r[e >> 1]);
-        if (need_mask) {
-          const int col = k0 + j * 8 + tig + (e & 1);
-          if (col >= S || (causal && col > qpos[e >> 1])) x = 0.f;
-        }
-        p[j][e] = x;
+  const int wg = threadIdx.x / kWarpgroup;
+  const int lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // Producer: one thread keeps the ring of K and V tiles full by TMA.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 2 * kWarpgroup) return;
+    mbar_arrive_expect_tx(q_ready, 2 * M::kQ);
+    tma_tile<D, kBlockRows>(&tm_q, base + M::kQo, q_ready, h, q0, b);
+    tma_tile<D, kBlockRows>(&tm_do, base + M::kDo, q_ready, h, q0, b);
+    int stage = 0, phase = 0;
+    for (int kt = 0; kt < n_k; ++kt) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_arrive_expect_tx(&full[stage], 2 * M::kKV);
+      const uint32_t sk = base + M::kRing + stage * 2 * M::kKV;
+      tma_tile<D, kStepRows>(&tm_k, sk, &full[stage], hk, kt * kStepRows, b);
+      tma_tile<D, kStepRows>(&tm_v, sk + M::kKV, &full[stage], hk, kt * kStepRows, b);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    // dS = P * (dO V^T - Delta).
-    float ds[kTile / 8][4];
-    mma_rows_rows<D, kTile>(ds, sdO, sV, r0, grp, tig);
+  } else {
+    // Consumers: warpgroup wg owns queries [qw0, qw0 + 64).
+    setmaxnreg_inc<kConsumerRegs>();
+    const int row = (threadIdx.x % kWarpgroup) / 32 * 16 + lane / 4;  // of elements 0, 1
+    const int col = (lane % 4) * 2;  // within each 8-column block
+    const int qw0 = q0 + wg * 64;
+    const int qpos[2] = {qw0 + row, qw0 + row + 8};
+    float lse_r[2], delta_r[2];
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - delta_r[e >> 1]);
+    for (int i = 0; i < 2; ++i) {
+      lse_r[i] = qpos[i] < S ? lse[(size_t)bh * S + qpos[i]] : 0.f;
+      delta_r[i] = qpos[i] < S ? delta[(size_t)bh * S + qpos[i]] : 0.f;
     }
-    // dQ += dS K (times scale in the epilogue).
-    mma_a_regs_b_rows<D, kTile / 16>(acc, ds, sK, grp, tig);
-  }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_ready, 0);
+    int stage = 0, phase = 0;
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int k0 = kt * kStepRows;
+      mbar_wait(&full[stage], phase);
+      if (qw0 < S && !(causal && k0 > qw0 + 63)) {
+        const uint32_t sk = base + M::kRing + stage * 2 * M::kKV;
+        const uint32_t sv = sk + M::kKV;
+        float s[32], dp[32];
+        wgmma_fence();
+        gemm_abt<D>(s, base + M::kQo, kBlockRows, wg * 64, sk);  // S = Q K^T
+        wgmma_commit();
+        gemm_abt<D>(dp, base + M::kDo, kBlockRows, wg * 64, sv);  // dP = dO V^T
+        wgmma_commit();
+        wgmma_wait<1>();
+        reg_fence(s);
+        // P = exp(scale S - LSE), the row's query.
+        const bool need_mask = k0 + kStepRows > S || (causal && k0 + kStepRows - 1 > qw0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = __expf(s[4 * j + e] * scale - lse_r[e >> 1]);
+            if (need_mask) {
+              const int kj = k0 + j * 8 + col + (e & 1);
+              if (kj >= S || (causal && kj > qpos[e >> 1])) x = 0.f;
+            }
+            s[4 * j + e] = x;
+          }
+        }
+        wgmma_wait<0>();
+        reg_fence(dp);
+        // dS = P * (dP - Delta).
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - delta_r[(i >> 1) & 1]);
+        uint32_t dsa[16];
+        to_a_operand(dsa, dp);
+        reg_fence(acc);
+        wgmma_fence();
+        gemm_rs<D>(acc, dsa, sk);  // dQ += dS K (times scale in the epilogue)
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(acc);
+        reg_fence(dsa);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (qpos[i] >= S) continue;
-    __nv_bfloat16* row = dq + ((size_t)b * S * H + (size_t)qpos[i] * H + h) * D + tig;
+    for (int i = 0; i < 2; ++i) {
+      if (qpos[i] >= S) continue;
+      __nv_bfloat16* out = dq + ((size_t)b * S * H + (size_t)qpos[i] * H + h) * D + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(row + j * 8) =
-          pack_bf16(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(out + j * 8) =
+            pack_bf16(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+      }
     }
   }
 }
@@ -550,24 +839,80 @@ struct Args {
   cudaStream_t stream;
 };
 
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime, so that the
+// library needs no link against libcuda.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a [B, S, heads, D] bf16 tensor (innermost first), boxes of
+// `rows` rows x kCols columns of one head, swizzled as wgmma reads them.
+template <int D>
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int rows) {
+  using T = Tile<D>;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)T::kCols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      T::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor maps of q, dout (H heads) and k, v (Hkv heads), with q_rows and
+// kv_rows rows a box.
+template <int D>
+cudaError_t make_maps(const Args& a, int q_rows, int kv_rows, CUtensorMap* tm) {
+  cudaError_t err = make_map<D>(&tm[0], a.q, a.B, a.S, a.H, q_rows);
+  if (err == cudaSuccess) err = make_map<D>(&tm[1], a.dout, a.B, a.S, a.H, q_rows);
+  if (err == cudaSuccess) err = make_map<D>(&tm[2], a.k, a.B, a.S, a.Hkv, kv_rows);
+  if (err == cudaSuccess) err = make_map<D>(&tm[3], a.v, a.B, a.S, a.Hkv, kv_rows);
+  return err;
+}
+
 template <int D>
 cudaError_t launch_dkdv(const Args& a, void* dk, void* dv, int is_bf16) {
-  const dim3 grid_bf16((a.S + kTile - 1) / kTile, a.B * a.Hkv);
-  const dim3 grid_f32((a.S + kRowsF - 1) / kRowsF, a.B * a.Hkv);
   if (is_bf16) {
-    const int smem = (2 * kTile + 2 * kQStep) * (D + kPad) * (int)sizeof(__nv_bfloat16) +
-                     2 * kQStep * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    CUtensorMap tm[4];
+    cudaError_t err = make_maps<D>(a, kStepRows, kBlockRows, tm);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_bf16_kernel<D><<<grid_bf16, kThreads, smem, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.S, a.H, a.Hkv,
-        a.causal, a.scale);
+    const int smem = DkdvSmem<D>::kBytes + 1024;  // + alignment of the base
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.B * a.Hkv, (a.S + kBlockRows - 1) / kBlockRows);
+    flash_bwd_dkdv_bf16_kernel<D><<<grid, kBf16Threads, smem, a.stream>>>(
+        tm[0], tm[1], tm[2], tm[3], static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), a.S, a.H, a.Hkv, a.causal, a.scale);
   } else {
-    flash_bwd_dkdv_f32_kernel<D><<<grid_f32, kThreads, 0, a.stream>>>(
+    const dim3 grid((a.S + kRowsF - 1) / kRowsF, a.B * a.Hkv);
+    flash_bwd_dkdv_f32_kernel<D><<<grid, kThreads, 0, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -579,20 +924,22 @@ cudaError_t launch_dkdv(const Args& a, void* dk, void* dv, int is_bf16) {
 
 template <int D>
 cudaError_t launch_dq(const Args& a, void* dq, int is_bf16) {
-  const dim3 grid_bf16((a.S + kTile - 1) / kTile, a.B * a.H);
-  const dim3 grid_f32((a.S + kRowsF - 1) / kRowsF, a.B * a.H);
   if (is_bf16) {
-    const int smem = 4 * kTile * (D + kPad) * (int)sizeof(__nv_bfloat16);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    CUtensorMap tm[4];
+    cudaError_t err = make_maps<D>(a, kBlockRows, kStepRows, tm);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_bf16_kernel<D><<<grid_bf16, kThreads, smem, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<__nv_bfloat16*>(dq), a.S, a.H, a.Hkv, a.causal, a.scale);
+    const int smem = DqSmem<D>::kBytes + 1024;
+    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.B * a.H, (a.S + kBlockRows - 1) / kBlockRows);
+    flash_bwd_dq_bf16_kernel<D><<<grid, kBf16Threads, smem, a.stream>>>(
+        tm[0], tm[1], tm[2], tm[3], static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(dq), a.S, a.H, a.Hkv,
+        a.causal, a.scale);
   } else {
-    flash_bwd_dq_f32_kernel<D><<<grid_f32, kThreads, 0, a.stream>>>(
+    const dim3 grid((a.S + kRowsF - 1) / kRowsF, a.B * a.H);
+    flash_bwd_dq_f32_kernel<D><<<grid, kThreads, 0, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),

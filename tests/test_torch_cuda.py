@@ -68,22 +68,33 @@ def _rel(got, ref) -> float:
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "s,causal,dtype,tol",
-    # bf16: the kernels round P and dS to bf16 before three of their
-    # products, where the plain version keeps f32 (reason in chip_smoke.py).
-    [(2048, True, torch.bfloat16, 2e-2), (1000, True, torch.bfloat16, 2e-2),
-     (1000, True, torch.float32, 1e-4)],
-)
-def test_cuda_flash_bwd_kernels_match_plain(cuda_device, s, causal, dtype, tol):
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
+def _bwd_inputs(device, b, s, d, dtype, seed, causal=True):
+    """q, k, v, dO (32 query heads, 8 KV heads), and the forward's LSE and
+    the Delta pre-pass over them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
     q, k, v, do = (
-        torch.randn(1, s, heads, 128, device=cuda_device, dtype=dtype, generator=gen)
+        torch.randn(b, s, heads, d, device=device, dtype=dtype, generator=gen)
         for heads in (32, 8, 8, 32)
     )
     out, lse = TA.flash_attention(q, k, v, causal)
-    delta = TA.flash_bwd_delta(out, do)
+    return q, k, v, do, lse, TA.flash_bwd_delta(out, do)
+
+
+# bf16 at B 1 and 2 (a tile must not read across a batch), a whole number
+# of tiles, a ragged length and one shorter than a tile, each head_dim.
+_BWD_BF16 = [(b, s, d) for b in (1, 2) for s in (2048, 1000, 100) for d in (32, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,d,causal,dtype,tol",
+    # bf16: the kernels round P and dS to bf16 before three of their
+    # products, where the plain version keeps f32 (reason in chip_smoke.py).
+    [(b, s, d, True, torch.bfloat16, 2e-2) for b, s, d in _BWD_BF16]
+    + [(1, 1000, 128, False, torch.bfloat16, 2e-2), (1, 1000, 128, True, torch.float32, 1e-4)],
+)
+def test_cuda_flash_bwd_kernels_match_plain(cuda_device, b, s, d, causal, dtype, tol):
+    q, k, v, do, lse, delta = _bwd_inputs(cuda_device, b, s, d, dtype, seed=1, causal=causal)
     before = (TA.flash_bwd_dkdv.launches, TA.flash_bwd_dq.launches)
     dk, dv = TA.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
     dq = TA.flash_bwd_dq(q, k, v, do, lse, delta, causal)
@@ -94,6 +105,20 @@ def test_cuda_flash_bwd_kernels_match_plain(cuda_device, s, causal, dtype, tol):
     for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         assert _rel(got, ref) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_kernels_are_deterministic(cuda_device):
+    # No atomics: two launches on the same inputs give the same bits.
+    q, k, v, do, lse, delta = _bwd_inputs(cuda_device, 2, 1000, 128, torch.bfloat16, seed=2)
+    runs = [
+        (*TA.flash_bwd_dkdv(q, k, v, do, lse, delta, True),
+         TA.flash_bwd_dq(q, k, v, do, lse, delta, True))
+        for _ in range(2)
+    ]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
