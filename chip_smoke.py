@@ -2,23 +2,25 @@
 """Smoke run of the PyTorch/H100 port (``hivedscheduler_tpu_torch``) on one
 NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--kernels-only]
 
 Phases, in order, one result line each; any failed check raises and the
-script exits non-zero:
+script exits non-zero (``--kernels-only`` stops after phase 3 and prints
+neither the kernels line nor the last line, since no main path ran):
 
 1. device  - needs CUDA; the card's name and power limit from nvidia-smi.
 2. build   - compiles every kernel under hivedscheduler_tpu_torch/ops/csrc.
 3. kernels - each kernel's wrapper against its plain PyTorch version on the
-             card, at the main path's shapes and a few edge cases (ragged
-             tile, non-causal, f32, head_dim 32/64/128), with the tolerances
-             below; times the kernel, the plain version and the library call
-             that computes the same function (a yardstick only: the port
-             never calls it). The backward kernels, and the forward again,
-             are checked and timed at the training shape, B1 S8192, where
-             a second launch must give bitwise-equal gradients; the
-             backward's edge cases add B2 at S8192 and at a ragged S1000,
-             S100 (shorter than one tile) and D64 non-causal.
+             card, at the main path's shapes and the edge cases (B2 at
+             S8192, so that a tile never reads across a batch; a ragged
+             S1000; S100, shorter than one tile; non-causal; f32; head_dim
+             32/64/128), with the tolerances below; times the kernel, the
+             plain version and the library call that computes the same
+             function (a yardstick only: the port never calls it). The
+             forward is timed at the serving shape, B4 S2048, and at the
+             training shape, B1 S8192, where the backward kernels are
+             checked and timed too; there a second launch of each kernel
+             must give bitwise-equal outputs.
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
              tokens through the serving entry point. Launch counts are set
@@ -44,8 +46,13 @@ script exits non-zero:
 
 The lines before the last are nvidia-smi's name and power limit, then one
 JSON object with each kernel's numbers; the last line is
-``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
-no result.
+``{"ok": true, "device": {...}}``. In the kernels line, the forward's
+``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` and
+``tflops`` are taken at the serving shape and ``ms_train``,
+``plain_ms_train``, ``bound_ms_train``, ``bound_by_train``,
+``library_ms_train`` and ``tflops_train`` at the training shape; the
+backward kernels' numbers are at the training shape. Without CUDA it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -172,14 +180,22 @@ def check_fwd(name, q, k, v, causal, out, lse) -> dict:
     from hivedscheduler_tpu_torch.ops import attention as A
 
     b, s, h, d = q.shape
-    ref_out, ref_lse = A.flash_attention_reference(q, k, v, causal)
-    d_o = (out.float() - ref_out.float()).abs()
+    # One batch row at a time: rows are independent, and the plain version's
+    # f32 [H, S, S] buffers of one row at S8192 are what the card can hold.
+    o_max = o_sum = lse_max = 0.0
+    for i in range(b):
+        ref_out, ref_lse = A.flash_attention_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                                       causal)
+        d_o = (out[i:i + 1].float() - ref_out.float()).abs()
+        o_max, o_sum = max(o_max, d_o.max().item()), o_sum + d_o.sum().item()
+        lse_max = max(lse_max, (lse[i * h:(i + 1) * h] - ref_lse).abs().max().item())
+        del ref_out, ref_lse, d_o
     tol = TOL_BF16 if q.dtype == torch.bfloat16 else TOL_F32
     fields = {
         "case": name, "shape": [b, s, h, k.shape[2], d], "causal": causal,
         "dtype": str(q.dtype).replace("torch.", ""),
-        "o_max_abs_err": d_o.max().item(), "o_mean_abs_err": d_o.mean().item(),
-        "lse_max_abs_err": (lse - ref_lse).abs().max().item(), "tol": tol,
+        "o_max_abs_err": o_max, "o_mean_abs_err": o_sum / out.numel(),
+        "lse_max_abs_err": lse_max, "tol": tol,
     }
     if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
         raise AssertionError(f"{name}: non-finite kernel output")
@@ -189,11 +205,39 @@ def check_fwd(name, q, k, v, causal, out, lse) -> dict:
     return fields
 
 
-def phase_kernels(seed: int) -> dict:
-    """Flash forward kernel vs its plain version at the serving shapes;
-    returns the numbers of the main-path case for the kernels line."""
-    import torch
+def time_fwd(q, k, v, causal) -> dict:
+    """Device times of the forward kernel, its plain version (one call after
+    one warm-up) and SDPA, with the kernel's bound and rate."""
     import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.ops import attention as A
+
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    fields = {"kernel_ms": cuda_ms(lambda: A.flash_attention(q, k, v, causal), 20)}
+    fields["plain_ms"] = cuda_ms(lambda: A.flash_attention_reference(q, k, v, causal), 1,
+                                 warmup=1)
+    # Library yardstick: SDPA on [B, H, S, D] with K/V already repeated to H
+    # heads (prepared outside the timed region).
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+    fields["library_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 20
+    )
+    fields["bound_ms"], fields["bound_by"] = flash_bound_ms("fwd", b, s, h, hkv, d, causal,
+                                                            q.dtype)
+    fields["kernel_tflops"] = (
+        flash_flops("fwd", b, s, h, d, causal) / (fields["kernel_ms"] * 1e-3) / 1e12
+    )
+    return fields
+
+
+def phase_kernels(seed: int) -> dict:
+    """Flash forward kernel vs its plain version at the serving shape and
+    the edge cases; returns the numbers of the main-path case for the
+    kernels line."""
+    import torch
 
     from hivedscheduler_tpu_torch.ops import attention as A
 
@@ -201,12 +245,15 @@ def phase_kernels(seed: int) -> dict:
     cases = [
         ("main_path", 4, 2048, 32, 8, 128, True, torch.bfloat16, True),
         ("b2_causal", 2, 2048, 32, 8, 128, True, torch.bfloat16, False),
+        ("b2_s8192_causal", 2, 8192, 32, 8, 128, True, torch.bfloat16, False),
         ("b2_full", 2, 2048, 32, 8, 128, False, torch.bfloat16, True),
         ("ragged_causal", 2, 1000, 32, 8, 128, True, torch.bfloat16, False),
         ("ragged_full", 2, 1000, 32, 8, 128, False, torch.bfloat16, False),
+        ("short_causal", 2, 100, 8, 2, 128, True, torch.bfloat16, False),
+        ("bf16_full_d64", 2, 1000, 8, 2, 64, False, torch.bfloat16, False),
+        ("bf16_causal_d32", 1, 300, 4, 2, 32, True, torch.bfloat16, False),
         ("f32_ragged_causal", 2, 1000, 32, 8, 128, True, torch.float32, False),
         ("f32_full_d64", 1, 512, 8, 2, 64, False, torch.float32, False),
-        ("bf16_causal_d32", 1, 300, 4, 2, 32, True, torch.bfloat16, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     main = None
@@ -218,25 +265,7 @@ def phase_kernels(seed: int) -> dict:
         torch.cuda.synchronize()
         fields = check_fwd(name, q, k, v, causal, out, lse)
         if timed:
-            fields["kernel_ms"] = cuda_ms(lambda: A.flash_attention(q, k, v, causal), 20)
-            fields["plain_ms"] = cuda_ms(
-                lambda: A.flash_attention_reference(q, k, v, causal), 3, warmup=1
-            )
-            # Library yardstick: SDPA on [B, H, S, D] with K/V already
-            # repeated to H heads (prepared outside the timed region).
-            qt = q.transpose(1, 2).contiguous()
-            kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
-            vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
-            fields["library_ms"] = cuda_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 20
-            )
-            fields["bound_ms"], fields["bound_by"] = flash_bound_ms(
-                "fwd", b, s, h, hkv, d, causal, dtype
-            )
-            fields["kernel_tflops"] = (
-                flash_flops("fwd", b, s, h, d, causal) / (fields["kernel_ms"] * 1e-3) / 1e12
-            )
-            del qt, kt, vt
+            fields.update(time_fwd(q, k, v, causal))
         log("kernels", **fields)
         if name == "main_path":
             main = fields
@@ -292,7 +321,7 @@ def phase_kernels_bwd(seed: int) -> dict:
     """The dK/dV and dQ kernels vs their plain versions; returns the
     main-path numbers for the kernels line. The main-path case is the
     training step's attention, B1 S8192: there the forward kernel is held to
-    its plain version too, and the backward kernels are timed."""
+    its plain version too, and all three kernels are timed."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as A
@@ -325,15 +354,21 @@ def phase_kernels_bwd(seed: int) -> dict:
         torch.cuda.synchronize()
         if name == "bwd_main_path":
             main["fwd"] = check_fwd("fwd_train_path", q, k, v, causal, out, lse)
-            log("kernels", **main["fwd"])
-            # No atomics: a second launch gives the same bits.
+            # No atomics: a second launch of each kernel gives the same bits.
+            out2, lse2 = A.flash_attention(q, k, v, causal)
             dk2, dv2 = A.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
             dq2 = A.flash_bwd_dq(q, k, v, do, lse, delta, causal)
             torch.cuda.synchronize()
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                raise AssertionError("forward kernel: two launches on the same inputs differ")
             if not (torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)):
                 raise AssertionError("backward kernels: two launches on the same inputs differ")
-            log("kernels", case="bwd_repeat_bitwise_equal", shape=[b, s, h, hkv, d])
-            del dk2, dv2, dq2
+            log("kernels", case="repeat_bitwise_equal", kernels=["fwd", "dkdv", "dq"],
+                shape=[b, s, h, hkv, d])
+            del out2, lse2, dk2, dv2, dq2
+            torch.cuda.empty_cache()
+            main["fwd"].update(time_fwd(q, k, v, causal))
+            log("kernels", **main["fwd"])
         ref_dk, ref_dv = A.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal)
         ref_dq = A.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
         tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD_F32
@@ -573,6 +608,12 @@ def device_time_rows(prof) -> list:
     )
 
 
+def port_kernel_rows(rows) -> list:
+    """The rows of the port's own kernels, wherever they rank."""
+    return [{"kernel": m.group(0), "ms": ms, "calls": n, "ms_per_call": ms / n}
+            for ms, k, n in rows for m in [re.search(r"flash_\w+<\d+>", k)] if m]
+
+
 def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float) -> None:
     """Device time by kernel over one training step; the idle share is taken
     against the mean unprofiled step time."""
@@ -589,7 +630,8 @@ def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float) 
     log("profile", window="train_step", wall_ms_unprofiled=unprofiled_ms,
         device_busy_ms=busy_ms, idle_share=1 - busy_ms / unprofiled_ms,
         kernel_launches=sum(r[2] for r in rows),
-        top=[{"kernel": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:14]])
+        top=[{"kernel": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:14]],
+        port_kernels=port_kernel_rows(rows))
 
 
 def profile_request(params, prompt, config, unprofiled: dict) -> None:
@@ -620,7 +662,8 @@ def profile_request(params, prompt, config, unprofiled: dict) -> None:
         log("profile", window=name, wall_ms_unprofiled=walls[name],
             device_busy_ms=busy_ms, idle_share=1 - busy_ms / walls[name],
             kernel_launches=sum(r[2] for r in rows),
-            top=[{"kernel": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:10]])
+            top=[{"kernel": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:10]],
+            port_kernels=port_kernel_rows(rows))
 
 
 def main() -> int:
@@ -629,6 +672,8 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over one request "
                              "and over one training step")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after the kernel checks and timings (phase 3)")
     args = parser.parse_args()
 
     import torch
@@ -647,6 +692,9 @@ def main() -> int:
     log("build", seconds=_build.build_all(), sources=[s.name for s in _build.sources()])
     k = phase_kernels(args.seed)
     kb = phase_kernels_bwd(args.seed)
+    if args.kernels_only:
+        print(smi)
+        return 0
     s = phase_serve(args.seed, args.profile)
     t = phase_train(args.seed, args.profile)
 
@@ -660,11 +708,10 @@ def main() -> int:
         "launches_by_path": {"serve": s["launches"], "train": t["launches"]["flash_fwd"]},
         # Held at the serving shape and at the training shape.
         "max_abs_err": max(k["o_max_abs_err"], kb["fwd"]["o_max_abs_err"]),
-        "ms": k["kernel_ms"],
-        "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"],
-        "library_ms": k["library_ms"],
+        **{key + suffix: fields[src] for suffix, fields in (("", k), ("_train", kb["fwd"]))
+           for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                            ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
+                            ("library_ms", "library_ms"), ("tflops", "kernel_tflops"))},
     }]
     for name, kind, line in (("flash_bwd_dkdv", "dkdv", 201), ("flash_bwd_dq", "dq", 278)):
         kernels.append({

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds). The library's file name carries
-a hash of its source, so an edited source is never served by a stale build.
+PyTorch headers, so a build takes seconds). The sources share the headers
+``csrc/*.cuh``. The library's file name carries a hash of its source and of
+every header beside it, so an edited source or header is never served by a
+stale build.
 The only inputs are the sources in the checkout; the outputs go to
 ``ops/_kernels_build/``, which git ignores.
 """
@@ -51,8 +53,13 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    """The library built from ``src``, named by a hash of ``src`` and of the
+    ``*.cuh`` headers in its directory."""
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(src: Path) -> Tuple[subprocess.Popen, str]:

@@ -20,24 +20,44 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# bf16 at B 1 and 2 (a tile must not read across a batch), a whole number
+# of tiles, a ragged length and one shorter than a tile, each head_dim.
+_BF16_GRID = [(b, s, d) for b in (1, 2) for s in (2048, 1000, 100) for d in (32, 64, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "s,causal,dtype,tol",
-    [(2048, True, torch.bfloat16, 2e-2), (1000, False, torch.bfloat16, 2e-2),
-     (1000, True, torch.float32, 2e-5)],
+    "b,s,d,causal,dtype,tol",
+    [(b, s, d, True, torch.bfloat16, 2e-2) for b, s, d in _BF16_GRID]
+    + [(2, 1000, 128, False, torch.bfloat16, 2e-2), (2, 1000, 64, False, torch.bfloat16, 2e-2),
+       (2, 1000, 128, True, torch.float32, 2e-5)],
 )
-def test_cuda_flash_kernel_matches_plain(cuda_device, s, causal, dtype, tol):
+def test_cuda_flash_kernel_matches_plain(cuda_device, b, s, d, causal, dtype, tol):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    q = torch.randn(2, s, 32, 128, device=cuda_device, dtype=dtype, generator=gen)
-    k = torch.randn(2, s, 8, 128, device=cuda_device, dtype=dtype, generator=gen)
-    v = torch.randn(2, s, 8, 128, device=cuda_device, dtype=dtype, generator=gen)
+    q = torch.randn(b, s, 32, d, device=cuda_device, dtype=dtype, generator=gen)
+    k = torch.randn(b, s, 8, d, device=cuda_device, dtype=dtype, generator=gen)
+    v = torch.randn(b, s, 8, d, device=cuda_device, dtype=dtype, generator=gen)
     before = TA.flash_attention.launches
     out, lse = TA.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert TA.flash_attention.launches == before + 1
     ref, ref_lse = TA.flash_attention_reference(q, k, v, causal)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernel_is_deterministic(cuda_device):
+    # Each block owns its output rows: two launches give the same bits.
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn(2, 1000, 32, 128, device=cuda_device, dtype=torch.bfloat16, generator=gen)
+    k, v = (torch.randn(2, 1000, 8, 128, device=cuda_device, dtype=torch.bfloat16, generator=gen)
+            for _ in range(2))
+    runs = [TA.flash_attention(q, k, v, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -80,17 +100,12 @@ def _bwd_inputs(device, b, s, d, dtype, seed, causal=True):
     return q, k, v, do, lse, TA.flash_bwd_delta(out, do)
 
 
-# bf16 at B 1 and 2 (a tile must not read across a batch), a whole number
-# of tiles, a ragged length and one shorter than a tile, each head_dim.
-_BWD_BF16 = [(b, s, d) for b in (1, 2) for s in (2048, 1000, 100) for d in (32, 64, 128)]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b,s,d,causal,dtype,tol",
     # bf16: the kernels round P and dS to bf16 before three of their
     # products, where the plain version keeps f32 (reason in chip_smoke.py).
-    [(b, s, d, True, torch.bfloat16, 2e-2) for b, s, d in _BWD_BF16]
+    [(b, s, d, True, torch.bfloat16, 2e-2) for b, s, d in _BF16_GRID]
     + [(1, 1000, 128, False, torch.bfloat16, 2e-2), (1, 1000, 128, True, torch.float32, 1e-4)],
 )
 def test_cuda_flash_bwd_kernels_match_plain(cuda_device, b, s, d, causal, dtype, tol):
