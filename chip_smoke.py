@@ -20,7 +20,10 @@ neither the kernels line nor the last line, since no main path ran):
              forward is timed at the serving shape, B4 S2048, and at the
              training shape, B1 S8192, where the backward kernels are
              checked and timed too; there a second launch of each kernel
-             must give bitwise-equal outputs.
+             must give bitwise-equal outputs. The perf harness's shapes
+             (8 heads without GQA at B2 S8192, B1 S16384 and B1 S32768)
+             are held too. The plain versions run one (batch row, KV head)
+             block at a time, which is what the card holds at S32768.
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
              tokens through the serving entry point. Launch counts are set
@@ -43,9 +46,29 @@ neither the kernels line nor the last line, since no main path ran):
              not twice: the "flash" policy keeps its outputs). Losses must be
              finite, the first near ln(vocab) + 0.5, the last below the
              first.
+6. workloads - the jobs as the scheduler launches them. A token file of
+             uint32 ids from --seed and a one-pod HIVED_TPU_ENV block; the
+             training entry point (``train.main``) at Llama-3-8B's full
+             width, depth cut to WORKLOAD["layers"] (2; 1 when the disk
+             cannot hold the checkpoint), ``--data``, batch 1 x 8192, 3
+             steps, each launching every kernel once a layer; the state
+             saved with ``TrainCheckpointer`` into a temporary directory
+             (bytes, write and read seconds printed) and restored into
+             fresh parameters and a fresh AdamW, which must equal the live
+             ones bit for bit, as must one more step on each. Then the
+             serving entry point (``serve.main --ckpt``) on that checkpoint,
+             whose greedy tokens must equal ``serve.run_request``'s on the
+             trainer's parameters cast to bf16; every prefill layer must
+             launch the flash kernel.
+7. perf    - the perf harness (``models/perf.main``) with its decode and
+             long-context stages, its artifact in a temporary file: no error
+             or rejected row, every MFU in (0, 1], finite losses, the
+             artifact written, and the train step and the attention
+             benchmark launching all three kernels.
 
-The lines before the last are nvidia-smi's name and power limit, then one
-JSON object with each kernel's numbers; the last line is
+Each phase logs its seconds. The lines before the last are nvidia-smi's
+name and power limit, then one JSON object with each kernel's numbers (its
+``launches_by_path``: serve, train, workloads, perf); the last line is
 ``{"ok": true, "device": {...}}``. In the kernels line, the forward's
 ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` and
 ``tflops`` are taken at the serving shape and ``ms_train``,
@@ -60,9 +83,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # Kernel vs plain version. bf16: both take f32 scores and an f32 softmax;
@@ -107,6 +133,17 @@ TRAIN_TOL = {"loss": 1e-4, "grad_max_rel": 1e-4, "param_mean": 1e-6}
 # First loss of random init: logits of unit variance give about
 # ln(vocab) + 0.5.
 LOSS_BAND = 1.5
+
+# Phase 6: the training job at Llama-3-8B's widths, depth cut to 2 layers so
+# that its checkpoint (f32 weights and AdamW's two moments, 12 bytes a
+# parameter) is some 18 GB of disk; "samples" rows of the token file.
+WORKLOAD = {"model": "llama3_8b", "layers": 2, "batch": 1, "seq": 8192, "steps": 3,
+            "samples": 6}
+SERVE_CKPT = {"batch": 4, "prompt": 2048, "new_tokens": 8}
+# The env block the scheduler writes for a one-pod gang (pod_tpu_env's keys).
+POD_ENV = {"TPU_VISIBLE_CHIPS": "0", "TPU_WORKER_ID": "0", "JAX_PROCESS_ID": "0",
+           "TPU_WORKER_HOSTNAMES": "localhost", "JAX_COORDINATOR_ADDRESS": "localhost:8476",
+           "JAX_NUM_PROCESSES": "1"}
 
 
 def log(phase: str, **fields) -> None:
@@ -172,23 +209,34 @@ def flash_bound_ms(kind, b, s, h, hkv, d, causal, dtype) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def head_blocks(b, h, hkv):
+    """(batch rows, query heads, KV head, LSE rows) of each (batch row, KV
+    head) block. Blocks are independent, so the plain versions run one at a
+    time: their f32 [S, S] buffers for one head at S32768 are 4.3 GB each,
+    for all 8 heads more than the card holds."""
+    grp = h // hkv
+    for i in range(b):
+        for g in range(hkv):
+            yield (slice(i, i + 1), slice(g * grp, (g + 1) * grp), slice(g, g + 1),
+                   slice(i * h + g * grp, i * h + (g + 1) * grp))
+
+
 def check_fwd(name, q, k, v, causal, out, lse) -> dict:
     """The forward kernel's (out, lse) against its plain version on the same
-    inputs; raises past TOL_BF16 or TOL_F32."""
+    inputs, block by block (``head_blocks``); raises past TOL_BF16 or
+    TOL_F32."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as A
 
     b, s, h, d = q.shape
-    # One batch row at a time: rows are independent, and the plain version's
-    # f32 [H, S, S] buffers of one row at S8192 are what the card can hold.
     o_max = o_sum = lse_max = 0.0
-    for i in range(b):
-        ref_out, ref_lse = A.flash_attention_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                                                       causal)
-        d_o = (out[i:i + 1].float() - ref_out.float()).abs()
+    for rows, qh, kh, lrows in head_blocks(b, h, k.shape[2]):
+        ref_out, ref_lse = A.flash_attention_reference(q[rows, :, qh], k[rows, :, kh],
+                                                       v[rows, :, kh], causal)
+        d_o = (out[rows, :, qh].float() - ref_out.float()).abs()
         o_max, o_sum = max(o_max, d_o.max().item()), o_sum + d_o.sum().item()
-        lse_max = max(lse_max, (lse[i * h:(i + 1) * h] - ref_lse).abs().max().item())
+        lse_max = max(lse_max, (lse[lrows] - ref_lse).abs().max().item())
         del ref_out, ref_lse, d_o
     tol = TOL_BF16 if q.dtype == torch.bfloat16 else TOL_F32
     fields = {
@@ -254,6 +302,11 @@ def phase_kernels(seed: int) -> dict:
         ("bf16_causal_d32", 1, 300, 4, 2, 32, True, torch.bfloat16, False),
         ("f32_ragged_causal", 2, 1000, 32, 8, 128, True, torch.float32, False),
         ("f32_full_d64", 1, 512, 8, 2, 64, False, torch.float32, False),
+        # The perf harness's shapes (phase 7): its attention bench and its
+        # "268m" model (8 heads, no GQA) at 8k, 16k and 32k tokens.
+        ("perf_attention", 2, 8192, 8, 8, 128, True, torch.bfloat16, False),
+        ("perf_long_context", 1, 16384, 8, 8, 128, True, torch.bfloat16, False),
+        ("perf_long_context_32k", 1, 32768, 8, 8, 128, True, torch.bfloat16, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     main = None
@@ -339,6 +392,9 @@ def phase_kernels_bwd(seed: int) -> dict:
         ("bwd_f32_ragged_causal_d64", 1, 1000, 8, 2, 64, True, torch.float32),
         ("bwd_f32_full_d128", 1, 512, 8, 2, 128, False, torch.float32),
         ("bwd_bf16_causal_d32", 1, 300, 4, 2, 32, True, torch.bfloat16),
+        ("bwd_perf_attention", 2, 8192, 8, 8, 128, True, torch.bfloat16),
+        ("bwd_perf_long_context", 1, 16384, 8, 8, 128, True, torch.bfloat16),
+        ("bwd_perf_long_context_32k", 1, 32768, 8, 8, 128, True, torch.bfloat16),
     ]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     main = {}
@@ -369,26 +425,38 @@ def phase_kernels_bwd(seed: int) -> dict:
             torch.cuda.empty_cache()
             main["fwd"].update(time_fwd(q, k, v, causal))
             log("kernels", **main["fwd"])
-        ref_dk, ref_dv = A.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal)
-        ref_dq = A.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
         tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD_F32
         fields = {"case": name, "shape": [b, s, h, hkv, d], "causal": causal,
                   "dtype": str(dtype).replace("torch.", ""), "tol": tol}
-        for grad, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
-            if got.shape != ref.shape or got.dtype != ref.dtype:
-                raise AssertionError(f"{name}: {grad} {tuple(got.shape)} {got.dtype} vs "
-                                     f"{tuple(ref.shape)} {ref.dtype}")
+        for grad, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+            if got.shape != (q if grad == "dq" else k).shape or got.dtype != dtype:
+                raise AssertionError(f"{name}: {grad} {tuple(got.shape)} {got.dtype}")
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{name}: non-finite {grad}")
-            diff = (got.float() - ref.float()).abs()
-            scale = ref.float().abs().max().item()
-            fields[f"{grad}_max_abs_err"] = diff.max().item()
-            fields[f"{grad}_max_rel"] = diff.max().item() / scale
-            fields[f"{grad}_mean_rel"] = diff.mean().item() / scale
+        # Max |delta|, sum |delta| and max |reference| of each gradient,
+        # block by block (``head_blocks``).
+        stats = {grad: [0.0, 0.0, 0.0] for grad in ("dq", "dk", "dv")}
+        for rows, qh, kh, lrows in head_blocks(b, h, hkv):
+            args = (q[rows, :, qh], k[rows, :, kh], v[rows, :, kh], do[rows, :, qh],
+                    lse[lrows], delta[lrows], causal)
+            ref_dk, ref_dv = A.flash_bwd_dkdv_reference(*args)
+            ref_dq = A.flash_bwd_dq_reference(*args)
+            for grad, got, ref in (("dq", dq[rows, :, qh], ref_dq), ("dk", dk[rows, :, kh], ref_dk),
+                                   ("dv", dv[rows, :, kh], ref_dv)):
+                diff = (got.float() - ref.float()).abs()
+                st = stats[grad]
+                st[0], st[1] = max(st[0], diff.max().item()), st[1] + diff.sum().item()
+                st[2] = max(st[2], ref.float().abs().max().item())
+            del ref_dk, ref_dv, ref_dq, diff
+        for grad, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+            max_err, sum_err, scale = stats[grad]
+            fields[f"{grad}_max_abs_err"] = max_err
+            fields[f"{grad}_max_rel"] = max_err / scale
+            fields[f"{grad}_mean_rel"] = sum_err / got.numel() / scale
             if fields[f"{grad}_max_rel"] > tol["max"] or fields[f"{grad}_mean_rel"] > tol["mean"]:
                 raise AssertionError(f"backward kernel disagrees with its plain version: {fields}")
         log("kernels", **fields)
-        del dk, dv, dq, ref_dk, ref_dv, ref_dq
+        del dk, dv, dq
         torch.cuda.empty_cache()
         if name == "bwd_main_path":
             main["dkdv_max_abs_err"] = max(fields["dk_max_abs_err"], fields["dv_max_abs_err"])
@@ -557,7 +625,7 @@ def phase_train(seed: int, profile: bool) -> dict:
         weights_gib=torch.cuda.memory_allocated() / 2**30)
     optimizer = train.make_optimizer(params)
     torch.cuda.reset_peak_memory_stats()
-    A.flash_attention.launches = A.flash_bwd_dkdv.launches = A.flash_bwd_dq.launches = 0
+    _reset_launches()
     recs = list(entry.run(params, config, tokens, TRAIN["warmup"] + TRAIN["timed"],
                           optimizer=optimizer))
     launches = entry.kernel_launches()
@@ -594,6 +662,221 @@ def phase_train(seed: int, profile: bool) -> dict:
     return summary
 
 
+def _equal(x, y) -> bool:
+    import torch
+
+    return x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _tree_equal(a, b) -> bool:
+    from hivedscheduler_tpu_torch.models import transformer
+
+    return all(_equal(x, y) for x, y in zip(transformer.leaves(a), transformer.leaves(b)))
+
+
+def _reset_launches() -> None:
+    from hivedscheduler_tpu_torch.ops import attention as A
+
+    A.flash_attention.launches = A.flash_bwd_dkdv.launches = A.flash_bwd_dq.launches = 0
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_workloads(seed: int) -> dict:
+    """The training job from a token file and the scheduler's env block,
+    its checkpoint, a bitwise resume, and the serving job on the checkpoint
+    (see the module docstring, phase 6). Returns each kernel's launches in
+    the two entry points' runs."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch import serve
+    from hivedscheduler_tpu_torch import train as entry
+    from hivedscheduler_tpu_torch.models import checkpoint, perf, train, transformer
+    from hivedscheduler_tpu_torch.utils.data import TokenFileDataset
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    saved_env = dict(os.environ)
+    try:
+        # Disk for the checkpoint: f32 weights and two f32 moments.
+        layers, config = WORKLOAD["layers"], None
+        free = shutil.disk_usage(workdir).free
+        for layers in (WORKLOAD["layers"], 1):
+            config = dataclasses.replace(transformer.llama3_8b(), n_layers=layers)
+            need = 12 * perf.n_params(transformer.init(config, torch.Generator(), "meta"))
+            if need * 1.1 < free:
+                break
+        else:
+            raise AssertionError(f"{free} bytes free cannot hold a {need}-byte checkpoint")
+        log("workloads", step="disk", free_bytes=free, checkpoint_bytes_needed=need,
+            layers=layers)
+
+        tokens = np.random.default_rng(seed).integers(
+            0, config.vocab_size, size=WORKLOAD["samples"] * WORKLOAD["seq"] + 1,
+            dtype=np.uint32)
+        data = os.path.join(workdir, "tokens.bin")
+        tokens.tofile(data)
+        os.environ["HIVED_TPU_ENV"] = "".join(f'{k}: "{v}"\n' for k, v in POD_ENV.items())
+
+        _reset_launches()
+        t0 = time.perf_counter()
+        job = entry.main(["--model", WORKLOAD["model"], "--layers", str(layers),
+                          "--batch", str(WORKLOAD["batch"]), "--seq", str(WORKLOAD["seq"]),
+                          "--steps", str(WORKLOAD["steps"]), "--data", data,
+                          "--seed", str(seed)])
+        train_launches = entry.kernel_launches()
+        losses = [r["loss"] for r in job.records]
+        if os.environ.get("JAX_PROCESS_ID") != "0" or os.environ.get("JAX_NUM_PROCESSES") != "1":
+            raise AssertionError("HIVED_TPU_ENV was not lifted into the environment")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite training loss: {losses}")
+        for r in job.records:
+            if set(r["launches"].values()) != {layers}:
+                raise AssertionError(f"train step {r['step']} launched {r['launches']}, "
+                                     f"not {layers} each")
+        log("workloads", step="train", layers=layers, losses=losses,
+            step_ms=[r["step_ms"] for r in job.records], launches=train_launches,
+            seconds=time.perf_counter() - t0)
+
+        ckdir = os.path.join(workdir, "ckpt")
+        ckpt = checkpoint.TrainCheckpointer(ckdir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(WORKLOAD["steps"], job.params, job.optimizer)
+        write_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(ckdir)
+        with torch.no_grad():
+            served_ref = transformer.cast(job.params, config.dtype)  # what was saved, in bf16
+
+        fresh = transformer.init(config, torch.Generator(device="cuda").manual_seed(seed + 7),
+                                 "cuda", dtype=torch.float32)
+        fresh_opt = train.make_optimizer(fresh)
+        t0 = time.perf_counter()
+        _, _, step = ckpt.restore(fresh, fresh_opt)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        live_state = job.optimizer.state_dict()["state"]
+        rest_state = fresh_opt.state_dict()["state"]
+        if not (step == WORKLOAD["steps"] and _tree_equal(job.params, fresh)
+                and all(_equal(live_state[i][k], rest_state[i][k])
+                        for i in live_state for k in live_state[i])):
+            raise AssertionError("restored parameters or AdamW state differ from the saved ones")
+        batch = torch.from_numpy(
+            TokenFileDataset(data, WORKLOAD["seq"] - 1, np.uint32).gather([0])).cuda()
+        live_loss = train.train_step(job.params, job.optimizer, batch, job.config, batch.device)
+        rest_loss = train.train_step(fresh, fresh_opt, batch, job.config, batch.device)
+        if not (torch.equal(live_loss, rest_loss) and _tree_equal(job.params, fresh)):
+            raise AssertionError(f"a step after resume differs: loss {live_loss.item()} live, "
+                                 f"{rest_loss.item()} restored")
+        log("workloads", step="checkpoint", bytes=nbytes, write_s=write_s, read_s=read_s,
+            write_gb_s=nbytes / write_s / 1e9, read_gb_s=nbytes / read_s / 1e9,
+            resume_bitwise=True, loss_after_resume=live_loss.item())
+        del job, fresh, fresh_opt, live_state, rest_state, batch
+        torch.cuda.empty_cache()
+
+        out = io.StringIO()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            results = serve.main(["--model", WORKLOAD["model"], "--layers", str(layers),
+                                  "--ckpt", ckdir, "--batch", str(SERVE_CKPT["batch"]),
+                                  "--prompt-len", str(SERVE_CKPT["prompt"]),
+                                  "--new-tokens", str(SERVE_CKPT["new_tokens"]),
+                                  "--temperature", "0", "--requests", "1",
+                                  "--seed", str(seed)])
+        serve_launches = entry.kernel_launches()
+        serve_s = time.perf_counter() - t0
+        print(out.getvalue(), end="", flush=True)
+        if f"restored checkpoint step {WORKLOAD['steps']} " not in out.getvalue():
+            raise AssertionError("serve.main did not print the restored step")
+        if serve_launches["flash_fwd"] != layers:
+            raise AssertionError(f"serving prefill launched the flash kernel "
+                                 f"{serve_launches['flash_fwd']} times for {layers} layers")
+        prompt = torch.from_numpy(serve.synthetic_tokens(
+            np.random.default_rng(seed + 1), SERVE_CKPT["batch"], SERVE_CKPT["prompt"],
+            config.vocab_size)).cuda()
+        ref = serve.run_request(served_ref, prompt, config, SERVE_CKPT["new_tokens"])
+        if not torch.equal(results[0]["tokens"], ref["tokens"]):
+            raise AssertionError("tokens served from the checkpoint differ from the "
+                                 "trainer's parameters' tokens")
+        log("workloads", step="serve", **SERVE_CKPT, ttft_ms=results[0]["ttft_ms"],
+            decode_tok_s=results[0]["decode_tok_s"], tokens_equal_live=True,
+            launches=serve_launches, seconds=serve_s)
+        del served_ref
+        torch.cuda.empty_cache()
+        return {k: train_launches[k] + serve_launches[k] for k in train_launches}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        os.environ.clear()
+        os.environ.update(saved_env)
+
+
+def phase_perf(profile: bool) -> dict:
+    """The perf harness with its optional stages; fails on any error or
+    rejected row, an MFU outside (0, 1], a non-finite loss, a missing
+    artifact or a kernel that a stage did not launch. Returns each
+    kernel's launches over the harness's run."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import perf, train, transformer
+    from hivedscheduler_tpu_torch.ops import attention as A
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_perf_")
+    knobs = {"HIVED_PERF_DECODE": "1", "HIVED_PERF_LONGCTX": "1",
+             "HIVED_PERF_ARTIFACT": os.path.join(workdir, "perf.json")}
+    saved_env = dict(os.environ)
+    try:
+        os.environ.update(knobs)
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = perf.main([])
+        launches = A.kernel_launches()
+        seconds = time.perf_counter() - t0
+        rows = [result] + result["long_context"] + result["decode_sweep"]
+        bad = [r for r in rows if "error" in r or "mfu_rejected" in r]
+        if bad:
+            raise AssertionError(f"perf rows failed: {bad}")
+        for r in [result] + result["long_context"]:
+            if not (r.get("mfu") is not None and 0 < r["mfu"] <= 1):
+                raise AssertionError(f"perf row without an MFU in (0, 1]: {r}")
+            if r.get("loss") is None or not math.isfinite(r["loss"]):
+                raise AssertionError(f"perf row with a non-finite loss: {r}")
+        if not os.path.exists(knobs["HIVED_PERF_ARTIFACT"]):
+            raise AssertionError("perf wrote no artifact")
+        for stage in ("launches", "attention_launches"):
+            if 0 in result[stage].values():
+                raise AssertionError(f"perf {stage}: a kernel did not launch: {result[stage]}")
+        with open(knobs["HIVED_PERF_ARTIFACT"]) as f:
+            artifact = json.load(f)
+        log("perf", seconds=seconds, launches=launches, artifact_keys=sorted(artifact))
+        if profile:
+            # The harness's training step again (its model, seeds and
+            # shape), two warm-up steps, then one under the profiler.
+            config, batch, seq = perf.bench_config(True)
+            params = transformer.init(config, torch.Generator(device="cuda").manual_seed(0),
+                                      "cuda", dtype=torch.float32)
+            optimizer = train.make_optimizer(params)
+            tokens = torch.from_numpy(np.random.default_rng(1).integers(
+                0, config.vocab_size, size=(batch, seq))).cuda()
+            for _ in range(2):
+                train.train_step(params, optimizer, tokens, config)
+            profile_train_step(params, optimizer, tokens, config, result["step_time_ms"],
+                               window="perf_train_step")
+        return launches
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        os.environ.clear()
+        os.environ.update(saved_env)
+
+
 def device_time_rows(prof) -> list:
     """(device ms, kernel name, launches) by kernel, largest first. User
     annotations (``Optimizer.step``'s range) are not kernels: their device
@@ -614,7 +897,8 @@ def port_kernel_rows(rows) -> list:
             for ms, k, n in rows for m in [re.search(r"flash_\w+<\d+>", k)] if m]
 
 
-def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float) -> None:
+def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float,
+                       window: str = "train_step") -> None:
     """Device time by kernel over one training step; the idle share is taken
     against the mean unprofiled step time."""
     import torch
@@ -627,7 +911,7 @@ def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float) 
         torch.cuda.synchronize()
     rows = device_time_rows(prof)
     busy_ms = sum(r[0] for r in rows)
-    log("profile", window="train_step", wall_ms_unprofiled=unprofiled_ms,
+    log("profile", window=window, wall_ms_unprofiled=unprofiled_ms,
         device_busy_ms=busy_ms, idle_share=1 - busy_ms / unprofiled_ms,
         kernel_launches=sum(r[2] for r in rows),
         top=[{"kernel": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:14]],
@@ -670,8 +954,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="smoke run of the port on one card")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
-                        help="also print device time by kernel over one request "
-                             "and over one training step")
+                        help="also print device time by kernel over one request, "
+                             "over one training step and over one step of the "
+                             "perf harness's model")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel checks and timings (phase 3)")
     args = parser.parse_args()
@@ -689,14 +974,22 @@ def main() -> int:
 
     from hivedscheduler_tpu_torch.ops import _build
 
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log("phase", name=name, seconds=time.perf_counter() - t0)
+        return out
+
     log("build", seconds=_build.build_all(), sources=[s.name for s in _build.sources()])
-    k = phase_kernels(args.seed)
-    kb = phase_kernels_bwd(args.seed)
+    k = timed("kernels", phase_kernels, args.seed)
+    kb = timed("kernels_bwd", phase_kernels_bwd, args.seed)
     if args.kernels_only:
         print(smi)
         return 0
-    s = phase_serve(args.seed, args.profile)
-    t = phase_train(args.seed, args.profile)
+    s = timed("serve", phase_serve, args.seed, args.profile)
+    t = timed("train", phase_train, args.seed, args.profile)
+    w = timed("workloads", phase_workloads, args.seed)
+    p = timed("perf", phase_perf, args.profile)
 
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     kernels = [{
@@ -704,8 +997,9 @@ def main() -> int:
         "route": "cuda",
         "source": source + "flash_fwd.cu",
         "replaces": "hivedscheduler_tpu/ops/attention.py:133",
-        "launches": s["launches"] + t["launches"]["flash_fwd"],
-        "launches_by_path": {"serve": s["launches"], "train": t["launches"]["flash_fwd"]},
+        "launches": s["launches"] + t["launches"]["flash_fwd"] + w["flash_fwd"] + p["flash_fwd"],
+        "launches_by_path": {"serve": s["launches"], "train": t["launches"]["flash_fwd"],
+                             "workloads": w["flash_fwd"], "perf": p["flash_fwd"]},
         # Held at the serving shape and at the training shape.
         "max_abs_err": max(k["o_max_abs_err"], kb["fwd"]["o_max_abs_err"]),
         **{key + suffix: fields[src] for suffix, fields in (("", k), ("_train", kb["fwd"]))
@@ -719,8 +1013,9 @@ def main() -> int:
             "route": "cuda",
             "source": source + "flash_bwd.cu",
             "replaces": f"hivedscheduler_tpu/ops/attention.py:{line}",
-            "launches": t["launches"][name],
-            "launches_by_path": {"train": t["launches"][name]},
+            "launches": t["launches"][name] + w[name] + p[name],
+            "launches_by_path": {"train": t["launches"][name], "workloads": w[name],
+                                 "perf": p[name]},
             "max_abs_err": kb[f"{kind}_max_abs_err"],
             "ms": kb[kind]["ms"],
             "plain_ms": kb[kind]["plain_ms"],

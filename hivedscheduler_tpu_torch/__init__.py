@@ -10,10 +10,15 @@ a copy of. Kernels the JAX package wrote in Pallas are written by hand for
 
 Ported so far: single-device Llama serving (flash prefill through the
 hand-written flash-attention forward, KV-cache decode, int8 linears;
-``python -m hivedscheduler_tpu_torch.serve``) and the single-device
-training step (AdamW on f32 master weights, bf16 compute, remat, the
-hand-written flash-attention backward;
-``python -m hivedscheduler_tpu_torch.train``).
+``python -m hivedscheduler_tpu_torch.serve``), the single-device training
+step (AdamW on f32 master weights, bf16 compute, remat, the hand-written
+flash-attention backward; ``python -m hivedscheduler_tpu_torch.train``),
+and what a job placed by the scheduler needs around them: the boot from
+the scheduler's env block (``workloads/``, ``parallel/mesh.py``), token
+files with prefetch to the card (``utils/data.py``), checkpoints
+(``models/checkpoint.py``) and the perf harness
+(``python -m hivedscheduler_tpu_torch.models.perf``,
+``tools/mfu_sweep.py``).
 """
 
 from __future__ import annotations

@@ -1,2 +1,3 @@
-"""Models of the port: the Llama-style transformer, KV-cache generation,
-int8 quantization and the converter from the JAX package's parameters."""
+"""Models of the port: the Llama-style transformer, its training step,
+KV-cache generation, int8 quantization, checkpoints, the perf harness and
+the converter from the JAX package's parameters."""

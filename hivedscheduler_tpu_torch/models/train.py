@@ -116,7 +116,8 @@ def train_step(
     device: Device = None,
 ) -> torch.Tensor:
     """One step: loss, backward, AdamW update of ``params`` in place.
-    Returns the loss (a detached scalar, not synchronised). Runs on CUDA
+    ``tokens`` may be any integer dtype (a token file's int32 rows). Returns
+    the loss (a detached scalar, not synchronised). Runs on CUDA
     unless ``device`` names another; the parameters must live there. The
     step's gradients stay in each leaf's ``.grad`` until the next step."""
     device = resolve_device(device)
@@ -124,7 +125,7 @@ def train_step(
     if first.device.type != device.type:
         raise ValueError(f"parameters on {first.device}, step asked for {device}")
     optimizer.zero_grad(set_to_none=True)
-    loss = next_token_loss(params, tokens.to(device), config)
+    loss = next_token_loss(params, tokens.to(device=device, dtype=torch.long), config)
     loss.backward()
     optimizer.step()
     return loss.detach()

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -346,6 +346,15 @@ def flash_bwd_dq(
 
 
 flash_bwd_dq.launches = 0
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each kernel's launch count so far, by kernel name."""
+    return {
+        "flash_fwd": flash_attention.launches,
+        "flash_bwd_dkdv": flash_bwd_dkdv.launches,
+        "flash_bwd_dq": flash_bwd_dq.launches,
+    }
 
 
 def flash_attention_bwd(

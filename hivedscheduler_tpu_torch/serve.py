@@ -1,48 +1,75 @@
-"""Serve a Llama-style model on one device: random weights from a seed,
-synthetic prompts, flash-kernel prefill and KV-cache decode.
+"""Serve a Llama-style model on one device: weights from a training
+checkpoint or random from a seed, synthetic prompts, flash-kernel prefill
+and KV-cache decode.
 
 Single-device counterpart of ``example/workloads/serve_llama.py``::
 
     python -m hivedscheduler_tpu_torch.serve --model llama3_8b \\
         --batch 4 --prompt-len 2048 --new-tokens 32 --temperature 0
+    python -m hivedscheduler_tpu_torch.serve --model llama3_8b --layers 2 \\
+        --ckpt /path/to/checkpoints
 
-Each request prints its time to first token (prefill + first sample), its
-decode rate, and how many times the flash kernel launched. Checkpoints are
-a later slice of the port.
+The job boots from the scheduler's env block (``HIVED_TPU_ENV``). With
+``--ckpt`` it restores the parameters of the checkpoint's latest step
+(``models/checkpoint.TrainCheckpointer.restore_params``: the trainer's
+optimizer state is never read), in the compute dtype; ``--layers`` cuts the
+depth as ``train.py`` does, so a depth-cut trainer's checkpoint can be
+served. Each request prints its time to first token (prefill + first
+sample), its decode rate, and how many times the flash kernel launched. A
+world of more than one process raises: the sharded serving mesh is a later
+slice of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import Device, resolve_device
-from .models import generate, quantize, transformer
+from .models import checkpoint, generate, quantize, transformer
 from .ops import attention
+from .parallel.mesh import world_size
+from .workloads.common import bootstrap_distributed, synthetic_tokens  # noqa: F401 (re-exported)
 
 MODELS = {"tiny": transformer.tiny, "llama3_8b": transformer.llama3_8b}
 
 
-def synthetic_tokens(
-    rng: np.random.Generator, batch: int, seq: int, vocab: int
-) -> np.ndarray:
-    """Uniform random token ids [batch, seq], int64."""
-    return rng.integers(0, vocab, size=(batch, seq), dtype=np.int64)
+def _empty(tree: Any, dtype: torch.dtype, device: torch.device) -> Any:
+    """Uninitialised tensors in ``dtype`` on ``device``, shaped like
+    ``tree``'s leaves."""
+    if isinstance(tree, dict):
+        return {k: _empty(v, dtype, device) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=dtype, device=device)
 
 
 def build(
-    model: str, seed: int, device: Device = None, int8: bool = False
+    model: str,
+    seed: int,
+    device: Device = None,
+    int8: bool = False,
+    layers: Optional[int] = None,
+    ckpt: Optional[str] = None,
 ) -> Tuple[transformer.TransformerConfig, transformer.Params]:
-    """The model's config and random parameters drawn from ``seed``,
-    int8-quantized linears when ``int8``."""
+    """The model's config (depth cut to ``layers``) and its parameters in
+    the compute dtype: restored from the latest step under ``ckpt``, else
+    drawn from ``seed``; int8-quantized linears when ``int8``."""
     device = resolve_device(device)
     config = MODELS[model]()
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = transformer.init(config, gen, device)
+    config = dataclasses.replace(config, n_layers=layers or config.n_layers)
+    if ckpt:
+        # Shapes from an init on the meta device: nothing is drawn.
+        shapes = transformer.init(config, torch.Generator(), "meta")
+        like = _empty(shapes, config.dtype, device)
+        params, step = checkpoint.TrainCheckpointer(ckpt).restore_params(like)
+        print(f"restored checkpoint step {step} from {ckpt}", flush=True)
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = transformer.init(config, gen, device)
     if int8:
         params = quantize.quantize_params(params)
     return config, params
@@ -88,9 +115,15 @@ def run_request(
     }
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
+    """Serve ``--requests`` requests; returns each request's result
+    (``run_request``'s dict)."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", choices=sorted(MODELS), default="tiny")
+    parser.add_argument("--layers", type=int, default=None,
+                        help="cut the depth to this many layers (widths stay)")
+    parser.add_argument("--ckpt", default=None,
+                        help="checkpoint directory (models/checkpoint.py); omit for random weights")
     parser.add_argument("--batch", type=int, default=4)
     parser.add_argument("--prompt-len", type=int, default=512)
     parser.add_argument("--new-tokens", type=int, default=32)
@@ -105,9 +138,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
-    config, params = build(args.model, args.seed, device, args.int8)
+    bootstrap_distributed(device)
+    # One process: serve_llama.py's snap of the batch to a multiple of
+    # dp x fsdp is the identity here and comes with the sharded mesh.
+    if world_size() > 1:
+        raise NotImplementedError(
+            f"serving across {world_size()} processes needs the sharded serving "
+            "mesh (ROADMAP queue 1 item 8); this slice serves one process"
+        )
+    config, params = build(args.model, args.seed, device, args.int8, args.layers, args.ckpt)
     rng = np.random.default_rng(args.seed + 1)
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    results = []
     for r in range(args.requests):
         prompt = torch.from_numpy(
             synthetic_tokens(rng, args.batch, args.prompt_len, config.vocab_size)
@@ -116,6 +158,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             params, prompt, config, args.new_tokens, args.temperature,
             args.top_p, gen,
         )
+        results.append(res)
         rate = res["decode_tok_s"]
         print(
             f"request {r}: ttft {res['ttft_ms']:.1f} ms, decode "
@@ -124,6 +167,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             f"{res['tokens'][0, :4].tolist()}",
             flush=True,
         )
+    return results
 
 
 if __name__ == "__main__":

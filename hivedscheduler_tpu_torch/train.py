@@ -1,35 +1,51 @@
 """Train a Llama-style model on one device: random f32 master weights from
-a seed, one fixed synthetic batch, AdamW, bf16 compute with the flash
-kernels in forward and backward.
+a seed, batches from a token file or one fixed synthetic batch, AdamW,
+bf16 compute with the flash kernels in forward and backward.
 
 Single-card counterpart of ``example/workloads/train_llama.py`` (one rank
 of that job, at its per-device batch)::
 
     python -m hivedscheduler_tpu_torch.train --model llama3_8b --layers 8 \\
         --batch 1 --seq 8192 --steps 6 --remat-policy flash
+    python -m hivedscheduler_tpu_torch.train --model llama3_8b --layers 2 \\
+        --data tokens.bin --steps 50
 
-Each step prints its loss, its time (host clock around a device sync),
-tokens/s, on CUDA the share of the H100's dense bf16 peak that the model
-FLOPs (``models/perf.flops_per_token``) reach, and each kernel's launches.
-Every step takes the same batch, as the JAX package's
-``perf.bench_train_step`` does. ``--device cpu`` runs the plain versions;
-``--layers`` cuts the depth and nothing else.
+The job boots from the env block the scheduler writes at bind time
+(``HIVED_TPU_ENV``, ``workloads/common.bootstrap_distributed``). With
+``--data`` each step takes the next batch of a flat token file (rows of
+``--seq`` tokens, default the model's ``max_seq_len``; the sample order
+comes from seed 1 as in ``train_llama.py``), read and copied to the card
+ahead of the step; without it every step takes the same synthetic batch,
+as the JAX package's ``perf.bench_train_step`` does. Each step prints its
+loss, its time (host clock around a device sync), tokens/s, on CUDA the
+share of the H100's dense bf16 peak that the model FLOPs
+(``models/perf.flops_per_token``) reach, and each kernel's launches.
+``--device cpu`` runs the plain versions; ``--layers`` cuts the depth and
+nothing else. A world of more than one process raises: the sharded
+(FSDP/TP) step is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import time
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import Device, resolve_device
 from .models import perf, train, transformer
-from .ops import attention
-from .serve import MODELS, synthetic_tokens
+from .ops.attention import kernel_launches
+from .parallel.mesh import world_size
+from .serve import MODELS
+from .utils.data import TokenFileDataset, prefetch_to_device, sharded_batches
+from .workloads.common import bootstrap_distributed, synthetic_tokens
+
+# Token ids above this need a uint32 token file (Llama-3's vocab is 128,256).
+UINT16_VOCAB = 65536
 
 
 def build(
@@ -51,14 +67,6 @@ def build(
     return config, transformer.init(config, gen, device, dtype=torch.float32)
 
 
-def kernel_launches() -> Dict[str, int]:
-    return {
-        "flash_fwd": attention.flash_attention.launches,
-        "flash_bwd_dkdv": attention.flash_bwd_dkdv.launches,
-        "flash_bwd_dq": attention.flash_bwd_dq.launches,
-    }
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -67,25 +75,29 @@ def _sync(device: torch.device) -> None:
 def run(
     params: transformer.Params,
     config: transformer.TransformerConfig,
-    tokens: torch.Tensor,  # [B, S] on the parameters' device
+    tokens: Union[torch.Tensor, Iterable[torch.Tensor]],
     steps: int,
     optimizer: Optional[torch.optim.Optimizer] = None,
 ) -> Iterator[Dict[str, object]]:
-    """Take ``steps`` AdamW steps on ``tokens`` (a new ``make_optimizer``
-    unless one is given); yield one record a step: loss, step_ms,
+    """Take ``steps`` AdamW steps (a new ``make_optimizer`` unless one is
+    given), each on the next of ``tokens``' batches, or on ``tokens`` itself
+    when it is one [B, S] tensor; yield one record a step: loss, step_ms,
     tokens_per_s, peak_share (CUDA only) and launches."""
-    device = tokens.device
+    batches = itertools.repeat(tokens) if isinstance(tokens, torch.Tensor) else iter(tokens)
     optimizer = optimizer or train.make_optimizer(params)
-    flops_tok = perf.flops_per_token(config, perf.n_params(params), tokens.shape[1])
+    n_param = perf.n_params(params)
     for i in range(steps):
+        batch = next(batches)
+        device = batch.device
+        flops_tok = perf.flops_per_token(config, n_param, batch.shape[1])
         before = kernel_launches()
         _sync(device)
         t0 = time.perf_counter()
-        loss = float(train.train_step(params, optimizer, tokens, config, device))
+        loss = float(train.train_step(params, optimizer, batch, config, device))
         _sync(device)
         seconds = time.perf_counter() - t0
         after = kernel_launches()
-        tok_s = tokens.numel() / seconds
+        tok_s = batch.numel() / seconds
         yield {
             "step": i,
             "loss": loss,
@@ -98,36 +110,89 @@ def run(
         }
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+@dataclasses.dataclass
+class TrainResult:
+    """What ``main`` leaves behind: the trained state and each step's
+    record."""
+
+    config: transformer.TransformerConfig
+    params: transformer.Params
+    optimizer: torch.optim.Optimizer
+    records: List[Dict[str, object]]
+
+
+def token_dtype(vocab_size: int, name: Optional[str] = None) -> np.dtype:
+    """A token file's id dtype: ``name`` when given, else uint16 when every
+    id fits and uint32 when the vocab does not."""
+    if name is None:
+        name = "uint16" if vocab_size <= UINT16_VOCAB else "uint32"
+    dtype = np.dtype(name)
+    if np.iinfo(dtype).max < vocab_size - 1:
+        raise ValueError(f"{name} cannot hold the ids of a {vocab_size}-token vocab")
+    return dtype
+
+
+def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", choices=sorted(MODELS), default="tiny")
     parser.add_argument("--layers", type=int, default=None,
                         help="cut the depth to this many layers (widths stay)")
     parser.add_argument("--batch", type=int, default=1)
-    parser.add_argument("--seq", type=int, default=256)
+    parser.add_argument("--seq", type=int, default=None,
+                        help="tokens a row (default: the model's max_seq_len)")
     parser.add_argument("--steps", type=int, default=6)
     parser.add_argument("--remat-policy", choices=transformer.REMAT_POLICIES, default="flash")
+    parser.add_argument("--data", default=None,
+                        help="flat token file (memory-mapped); omit for one synthetic batch")
+    parser.add_argument("--data-dtype", choices=("uint16", "uint32"), default=None,
+                        help="the token file's id dtype (default: uint32 when the "
+                             "vocab exceeds 65,536 ids, else uint16)")
+    parser.add_argument("--opportunistic", action="store_true",
+                        help="accepted as train_llama.py accepts it; the scheduler reads it")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None,
                         help="default cuda; 'cpu' runs the plain versions")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
-    config, params = build(args.model, args.seed, device, args.layers, args.remat_policy)
-    rng = np.random.default_rng(args.seed + 1)
-    tokens = torch.from_numpy(
-        synthetic_tokens(rng, args.batch, args.seq, config.vocab_size)
-    ).to(device)
-    print(f"{args.model}: {config.n_layers} layers, {perf.n_params(params):,} parameters, "
-          f"batch {args.batch} x {args.seq} on {device}", flush=True)
-    for rec in run(params, config, tokens, args.steps):
-        share = rec["peak_share"]
-        print(
-            f"step {rec['step']}: loss {rec['loss']:.4f}, {rec['step_ms']:.1f} ms, "
-            f"{rec['tokens_per_s']:.0f} tok/s, bf16 peak share "
-            f"{'n/a' if share is None else f'{share:.3f}'}, launches {rec['launches']}",
-            flush=True,
+    bootstrap_distributed(device)
+    if world_size() > 1:
+        raise NotImplementedError(
+            f"training across {world_size()} processes needs the sharded FSDP/TP "
+            "step (ROADMAP queue 1 item 8); this slice trains one process"
         )
+    config, params = build(args.model, args.seed, device, args.layers, args.remat_policy)
+    seq = args.seq or config.max_seq_len
+    print(f"{args.model}: {config.n_layers} layers, {perf.n_params(params):,} parameters, "
+          f"batch {args.batch} x {seq} on {device}", flush=True)
+    stream = None
+    if args.data:
+        dataset = TokenFileDataset(args.data, seq - 1,
+                                   dtype=token_dtype(config.vocab_size, args.data_dtype))
+        # One process: the whole batch (no mesh) until the sharded step.
+        stream = prefetch_to_device(sharded_batches(dataset, args.batch, seed=1), device)
+        batches: Union[torch.Tensor, Iterator[torch.Tensor]] = stream
+    else:
+        rng = np.random.default_rng(args.seed + 1)
+        batches = torch.from_numpy(
+            synthetic_tokens(rng, args.batch, seq, config.vocab_size)
+        ).to(device)
+    optimizer = train.make_optimizer(params)
+    records = []
+    try:
+        for rec in run(params, config, batches, args.steps, optimizer):
+            records.append(rec)
+            share = rec["peak_share"]
+            print(
+                f"step {rec['step']}: loss {rec['loss']:.4f}, {rec['step_ms']:.1f} ms, "
+                f"{rec['tokens_per_s']:.0f} tok/s, bf16 peak share "
+                f"{'n/a' if share is None else f'{share:.3f}'}, launches {rec['launches']}",
+                flush=True,
+            )
+    finally:
+        if stream is not None:
+            stream.close()  # release the prefetch thread
+    return TrainResult(config, params, optimizer, records)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,3 @@
+"""What the port's workload entry points share (counterpart of
+``example/workloads/common.py``): the boot from the scheduler's env block
+and synthetic tokens."""

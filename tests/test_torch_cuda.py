@@ -162,3 +162,17 @@ def test_cuda_tiny_train_step_matches_cpu(cuda_device):
     torch.testing.assert_close(torch.tensor(losses[1]), torch.tensor(losses[0]), rtol=0, atol=1e-4)
     for a, b in zip(*grads):
         assert _rel(b, a) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_copies_on_a_side_stream(cuda_device):
+    # Pinned copies on a side stream; the consumer's stream waits for each,
+    # so a kernel queued right after a batch arrives reads its real values.
+    import numpy as np
+
+    from hivedscheduler_tpu_torch.utils.data import prefetch_to_device
+
+    batches = [np.full((4, 8192), i, dtype=np.int32) for i in range(6)]
+    sums = [(t.long() * 2).sum() for t in prefetch_to_device(iter(batches), cuda_device)]
+    torch.cuda.synchronize()
+    assert [s.item() for s in sums] == [2 * i * 4 * 8192 for i in range(6)]

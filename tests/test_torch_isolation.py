@@ -35,6 +35,9 @@ def test_import_pulls_in_no_jax():
     assert "hivedscheduler_tpu_torch.train" in mods
     assert "hivedscheduler_tpu_torch.models.train" in mods
     assert "hivedscheduler_tpu_torch.models.perf" in mods
+    for name in ("parallel.mesh", "utils.data", "workloads.common", "models.checkpoint",
+                 "tools.mfu_sweep"):
+        assert f"hivedscheduler_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -88,3 +91,18 @@ def test_training_entry_points_default_to_cuda(monkeypatch):
     opt = train.make_optimizer(params)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.train_step(params, opt, torch.zeros(1, 8, dtype=torch.long), config)
+
+
+def test_job_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from hivedscheduler_tpu_torch.models import perf
+    from hivedscheduler_tpu_torch.parallel import mesh
+    from hivedscheduler_tpu_torch.tools import mfu_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (serve.main, perf.main, mfu_sweep.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_entry.main(["--data", str(tmp_path / "tokens.bin")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.single_device_mesh()

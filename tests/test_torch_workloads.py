@@ -1,0 +1,143 @@
+"""The port's job entry points as the scheduler launches them: the env-block
+bootstrap (hivedscheduler_tpu_torch.workloads.common), ``train.main`` on a
+token file, and ``serve.main`` on a checkpoint, against the JAX package."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hivedscheduler_tpu import common as jcommon
+from hivedscheduler_tpu.models import generate as JG
+from hivedscheduler_tpu.models import transformer as JT
+from hivedscheduler_tpu.utils import data as JD
+from hivedscheduler_tpu_torch import serve
+from hivedscheduler_tpu_torch import train as entry
+from hivedscheduler_tpu_torch.models import checkpoint, convert, train, transformer
+from hivedscheduler_tpu_torch.workloads import common
+
+BLOCK = {
+    "TPU_VISIBLE_CHIPS": "0,1,2,3",
+    "TPU_WORKER_ID": "1",
+    "JAX_PROCESS_ID": "1",
+    "TPU_WORKER_HOSTNAMES": "tpu-w0,tpu-w1",
+    "JAX_COORDINATOR_ADDRESS": "tpu-w0:8476",
+    "JAX_NUM_PROCESSES": "1",
+}
+
+
+def test_parse_env_block_reads_the_schedulers_emitter():
+    text = jcommon.to_yaml_fast(BLOCK)
+    assert common.parse_env_block(text) == BLOCK
+    assert common.parse_env_block("") == {}
+    assert common.parse_env_block("# comment\n\nA: b\n") == {"A": "b"}
+    for bad in ("A:\n  B: c\n", "just text\n", "A:\n"):
+        with pytest.raises(ValueError, match="KEY: value"):
+            common.parse_env_block(bad)
+
+
+def test_bootstrap_lifts_the_block_with_setdefault(monkeypatch):
+    for key in BLOCK:  # set, then unset: the test's changes are undone after it
+        monkeypatch.setenv(key, "")
+        monkeypatch.delenv(key)
+    monkeypatch.setenv("TPU_VISIBLE_CHIPS", "7")  # already set: wins over the block
+    monkeypatch.setenv(common.ENV_BLOCK_VAR, jcommon.to_yaml_fast(BLOCK))
+    seen = []
+    monkeypatch.setattr(common, "initialize_from_env", lambda device=None: seen.append(device))
+    assert common.bootstrap_distributed("cpu") == 1
+    assert seen == ["cpu"]
+    assert os.environ["TPU_VISIBLE_CHIPS"] == "7"
+    for key in BLOCK.keys() - {"TPU_VISIBLE_CHIPS"}:
+        assert os.environ[key] == BLOCK[key]
+
+
+def test_bootstrap_without_a_block_is_rank_zero(monkeypatch):
+    for key in (common.ENV_BLOCK_VAR, "JAX_PROCESS_ID", "JAX_NUM_PROCESSES"):
+        monkeypatch.delenv(key, raising=False)
+    assert common.bootstrap_distributed("cpu") == 0
+
+
+def test_synthetic_tokens_reexported_by_serve():
+    assert serve.synthetic_tokens is common.synthetic_tokens
+    toks = common.synthetic_tokens(np.random.default_rng(0), 2, 5, 11)
+    assert toks.shape == (2, 5) and toks.dtype == np.int64 and toks.max() < 11
+
+
+@pytest.fixture
+def token_file(tmp_path):
+    path = tmp_path / "tokens.bin"
+    np.random.default_rng(4).integers(0, 512, size=16 * 64 + 1, dtype=np.uint16).tofile(path)
+    return str(path)
+
+
+def test_train_main_on_a_token_file_equals_run_on_the_same_batches(token_file, capsys):
+    got = entry.main(["--device", "cpu", "--model", "tiny", "--data", token_file,
+                      "--seq", "64", "--batch", "2", "--steps", "3", "--opportunistic"])
+    assert capsys.readouterr().out.splitlines()[0] == (
+        "tiny: 2 layers, 426,624 parameters, batch 2 x 64 on cpu")
+    # The same batches, drawn by the JAX package's dataset (seed 1, as
+    # train_llama.py draws them), through train.run from the same weights.
+    ds = JD.TokenFileDataset(token_file, 63)
+    batches = [torch.from_numpy(b) for _, b in zip(range(3), ds.batches(2, seed=1))]
+    config, params = entry.build("tiny", 0, "cpu")
+    ref = list(entry.run(params, config, batches, 3))
+    assert [r["loss"] for r in got.records] == [r["loss"] for r in ref]
+    for a, b in zip(transformer.leaves(got.params), transformer.leaves(params)):
+        assert torch.equal(a, b)
+    assert got.optimizer.state_dict()["state"][0]["step"].item() == 3
+
+
+def test_train_main_without_data_keeps_the_fixed_batch(capsys):
+    got = entry.main(["--device", "cpu", "--model", "tiny", "--seq", "256", "--steps", "2"])
+    assert len(got.records) == 2 and got.records[1]["loss"] < got.records[0]["loss"]
+
+
+def test_token_dtype_follows_the_vocab():
+    assert entry.token_dtype(512) == np.uint16
+    assert entry.token_dtype(65536) == np.uint16  # ids 0..65535
+    assert entry.token_dtype(transformer.llama3_8b().vocab_size) == np.uint32
+    assert entry.token_dtype(512, "uint32") == np.uint32
+    with pytest.raises(ValueError, match="uint16 cannot hold"):
+        entry.token_dtype(128256, "uint16")
+
+
+@pytest.mark.parametrize("module,argv", [
+    (entry, ["--device", "cpu", "--model", "tiny", "--steps", "1"]),
+    (serve, ["--device", "cpu", "--model", "tiny", "--requests", "1"]),
+])
+def test_more_than_one_process_is_refused(monkeypatch, module, argv):
+    # No rank may train or serve on its own: the sharded step is item 8's.
+    monkeypatch.setattr(module, "world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        module.main(argv)
+
+
+def test_serve_main_on_a_checkpoint_gives_the_jax_greedy_tokens(tmp_path, capsys):
+    jcfg = JT.tiny()
+    jparams = JT.init(jcfg, jax.random.PRNGKey(3))
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    ckpt = checkpoint.TrainCheckpointer(str(tmp_path))
+    ckpt.save(11, params, train.make_optimizer(params))
+
+    results = serve.main(["--device", "cpu", "--model", "tiny", "--ckpt", str(tmp_path),
+                          "--temperature", "0", "--requests", "1", "--batch", "2",
+                          "--prompt-len", "16", "--new-tokens", "5", "--seed", "9"])
+    out = capsys.readouterr().out
+    assert f"restored checkpoint step 11 from {tmp_path}" in out
+    prompt = serve.synthetic_tokens(np.random.default_rng(10), 2, 16, jcfg.vocab_size)
+    ref = JG.generate(jparams, jnp.asarray(prompt, jnp.int32), jcfg, max_new_tokens=5)
+    np.testing.assert_array_equal(results[0]["tokens"].numpy(), np.asarray(ref)[:, 16:])
+
+
+def test_serve_build_restores_a_depth_cut_checkpoint(tmp_path, capsys):
+    _, params = entry.build("tiny", 0, "cpu", layers=1)
+    checkpoint.TrainCheckpointer(str(tmp_path)).save(2, params, train.make_optimizer(params))
+    config, served = serve.build("tiny", 5, "cpu", layers=1, ckpt=str(tmp_path))
+    assert config.n_layers == 1 and served["layers"]["wq"].shape[0] == 1
+    assert "restored checkpoint step 2" in capsys.readouterr().out
+    for a, b in zip(transformer.leaves(params), transformer.leaves(served), strict=True):
+        assert b.dtype == config.dtype and not b.requires_grad
+        assert torch.equal(a.detach().to(config.dtype), b)
