@@ -22,8 +22,11 @@ neither the kernels line nor the last line, since no main path ran):
              checked and timed too; there a second launch of each kernel
              must give bitwise-equal outputs. The perf harness's shapes
              (8 heads without GQA at B2 S8192, B1 S16384 and B1 S32768)
-             are held too. The plain versions run one (batch row, KV head)
-             block at a time, which is what the card holds at S32768.
+             are held too, and Llama-3-8B's attention as one rank of a tp
+             gang holds it at B1 S8192 (H16/Hkv4, H8/Hkv2, H4/Hkv1 for tp
+             2, 4, 8), where all three kernels are also timed. The plain
+             versions run one (batch row, KV head) block at a time, which
+             is what the card holds at S32768.
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
              tokens through the serving entry point. Launch counts are set
@@ -45,7 +48,8 @@ neither the kernels line nor the last line, since no main path ran):
              forward, dK/dV and dQ kernels once a layer (the forward once,
              not twice: the "flash" policy keeps its outputs). Losses must be
              finite, the first near ln(vocab) + 0.5, the last below the
-             first.
+             first. The parameters after the warm-up steps are copied to
+             the host for phase 8.
 6. workloads - the jobs as the scheduler launches them. A token file of
              uint32 ids from --seed and a one-pod HIVED_TPU_ENV block; the
              training entry point (``train.main``) at Llama-3-8B's full
@@ -65,11 +69,28 @@ neither the kernels line nor the last line, since no main path ran):
              or rejected row, every MFU in (0, 1], finite losses, the
              artifact written, and the train step and the attention
              benchmark launching all three kernels.
+8. sharded - a one-rank NCCL group (TCP store on 127.0.0.1) and the 6-axis
+             mesh over it; NCCL's all-gather, reduce-scatter and all-reduce
+             once each (the model skips collectives over one rank, so the
+             steps below communicate nothing); phase 5's model, seed and
+             batch through the sharded step (``init_sharded``,
+             ``make_train_step``, ``shard_batch``), 2 warm-up steps whose
+             losses and every leaf's bytes after them must equal phase 5's
+             bit for bit, then 4 timed steps, each launching every kernel
+             once a layer; its mean step ms is printed beside phase 5's.
+             Then, after a short warm-up request, phase 4's first prompt
+             through the sharded serving path at 32 layers, whose 8 greedy
+             tokens must equal phase 4's first 8, every prefill layer
+             launching the flash kernel. With two cards or more, a 2-rank
+             NCCL gang of the tiny model (``tools/dryrun.py``: fsdp 2, then
+             tp 2) must come within 5e-3 of the one-process loss; with
+             one, the summary records ``"nccl_ranks": 1``.
 
 Each phase logs its seconds. The lines before the last are nvidia-smi's
 name and power limit, then one JSON object with each kernel's numbers (its
-``launches_by_path``: serve, train, workloads, perf); the last line is
-``{"ok": true, "device": {...}}``. In the kernels line, the forward's
+``launches_by_path``: serve, train, workloads, perf, sharded); the last line is
+``{"ok": true, "device": {...}}``. Each kernel's ``tp_shapes`` holds its
+numbers at phase 3's per-rank tp shapes. In the kernels line, the forward's
 ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` and
 ``tflops`` are taken at the serving shape and ``ms_train``,
 ``plain_ms_train``, ``bound_ms_train``, ``bound_by_train``,
@@ -140,6 +161,11 @@ LOSS_BAND = 1.5
 WORKLOAD = {"model": "llama3_8b", "layers": 2, "batch": 1, "seq": 8192, "steps": 3,
             "samples": 6}
 SERVE_CKPT = {"batch": 4, "prompt": 2048, "new_tokens": 8}
+# Phase 8: Llama-3-8B's attention as one rank of a tp gang holds it (32/8
+# heads over tp), held and timed in phase 3; the one-rank sharded serving
+# request (phase 4's first prompt, its first new tokens).
+TP_HEADS = {2: (16, 4), 4: (8, 2), 8: (4, 1)}
+SHARDED_SERVE = {"batch": 4, "prompt": 2048, "new_tokens": 8}
 # The env block the scheduler writes for a one-pod gang (pod_tpu_env's keys).
 POD_ENV = {"TPU_VISIBLE_CHIPS": "0", "TPU_WORKER_ID": "0", "JAX_PROCESS_ID": "0",
            "TPU_WORKER_HOSTNAMES": "localhost", "JAX_COORDINATOR_ADDRESS": "localhost:8476",
@@ -395,9 +421,10 @@ def phase_kernels_bwd(seed: int) -> dict:
         ("bwd_perf_attention", 2, 8192, 8, 8, 128, True, torch.bfloat16),
         ("bwd_perf_long_context", 1, 16384, 8, 8, 128, True, torch.bfloat16),
         ("bwd_perf_long_context_32k", 1, 32768, 8, 8, 128, True, torch.bfloat16),
-    ]
+    ] + [(f"bwd_tp{tp}", TRAIN["batch"], TRAIN["seq"], h, hkv, 128, True, torch.bfloat16)
+         for tp, (h, hkv) in TP_HEADS.items()]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    main = {}
+    main = {"tp_shapes": []}
     for name, b, s, h, hkv, d, causal, dtype in cases:
         q = torch.randn(b, s, h, d, device="cuda", dtype=dtype, generator=gen)
         k = torch.randn(b, s, hkv, d, device="cuda", dtype=dtype, generator=gen)
@@ -462,6 +489,17 @@ def phase_kernels_bwd(seed: int) -> dict:
             main["dkdv_max_abs_err"] = max(fields["dk_max_abs_err"], fields["dv_max_abs_err"])
             main["dq_max_abs_err"] = fields["dq_max_abs_err"]
             main.update(time_bwd(q, k, v, out, do, lse, delta, causal))
+        elif name.startswith("bwd_tp"):
+            # One rank of a tp gang: the forward held and all three timed.
+            fwd = check_fwd(name.replace("bwd_", "fwd_"), q, k, v, causal, out, lse)
+            torch.cuda.empty_cache()
+            fwd.update(time_fwd(q, k, v, causal))
+            log("kernels", **fwd)
+            main["tp_shapes"].append({
+                "tp": int(name[len("bwd_tp"):]), "shape": [b, s, h, hkv, d], "fwd": fwd,
+                "dkdv_max_abs_err": max(fields["dk_max_abs_err"], fields["dv_max_abs_err"]),
+                "dq_max_abs_err": fields["dq_max_abs_err"],
+                **time_bwd(q, k, v, out, do, lse, delta, causal)})
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return main
@@ -561,7 +599,8 @@ def phase_serve(seed: int, profile: bool, model: str = "llama3_8b",
         raise AssertionError("int8 request: token ids out of range")
     log("serve", step="int8", **INT8, ttft_ms=res["ttft_ms"],
         decode_tok_s=res["decode_tok_s"], flash_launches=int8_launches)
-    return {"launches": launches, "results": results}
+    return {"launches": launches, "results": results, "prompt0": prompts[0].cpu(),
+            "tokens0": results[0]["tokens"].cpu()}
 
 
 def phase_train(seed: int, profile: bool) -> dict:
@@ -626,8 +665,12 @@ def phase_train(seed: int, profile: bool) -> dict:
     optimizer = train.make_optimizer(params)
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    recs = list(entry.run(params, config, tokens, TRAIN["warmup"] + TRAIN["timed"],
-                          optimizer=optimizer))
+    recs = list(entry.run(params, config, tokens, TRAIN["warmup"], optimizer=optimizer))
+    # Phase 8's reference: every leaf's bytes after the warm-up steps, on
+    # the host (the card does not hold a second 8-layer AdamW state).
+    after_warmup = [t.detach().cpu() for t in transformer.leaves(params)]
+    for r in entry.run(params, config, tokens, TRAIN["timed"], optimizer=optimizer):
+        recs.append({**r, "step": len(recs)})
     launches = entry.kernel_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for r in recs:
@@ -659,7 +702,7 @@ def phase_train(seed: int, profile: bool) -> dict:
         profile_train_step(params, optimizer, tokens, config, step_ms)
     del params, optimizer, tokens
     torch.cuda.empty_cache()
-    return summary
+    return {**summary, "after_warmup": after_warmup}
 
 
 def _equal(x, y) -> bool:
@@ -877,6 +920,131 @@ def phase_perf(profile: bool) -> dict:
         os.environ.update(saved_env)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict:
+    """The sharded paths on a one-rank NCCL mesh (see the module docstring,
+    phase 8); returns each kernel's launches and the step times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hivedscheduler_tpu_torch import serve
+    from hivedscheduler_tpu_torch import train as entry
+    from hivedscheduler_tpu_torch.models import train, transformer
+    from hivedscheduler_tpu_torch.ops import attention as A
+    from hivedscheduler_tpu_torch.parallel import mesh as pmesh
+    from hivedscheduler_tpu_torch.parallel import sharding
+    from hivedscheduler_tpu_torch.tools import dryrun
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = pmesh.make_mesh(pmesh.MeshConfig(), "cuda")
+        # The model skips collectives over one rank, so on this mesh it
+        # communicates nothing: each collective it uses runs once here.
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        for name, got in (("all_gather", sharding._all_gather(x, 0, mesh, "fsdp")),
+                          ("reduce_scatter", sharding._reduce_scatter(x, 0, mesh, "fsdp")),
+                          ("all_reduce", sharding._all_reduce(x, mesh, "tp", "max"))):
+            if not torch.equal(got, x):
+                raise AssertionError(f"NCCL {name} over one rank changed its input")
+        # (a) Phase 5's model, seed and batch through the sharded step.
+        t0 = time.perf_counter()
+        config = dataclasses.replace(transformer.llama3_8b(), n_layers=TRAIN["layers"],
+                                     remat=True, remat_policy=TRAIN["remat_policy"])
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params, optimizer = train.init_sharded(config, mesh, gen, "cuda")
+        tokens = torch.from_numpy(serve.synthetic_tokens(
+            np.random.default_rng(seed + 1), TRAIN["batch"], TRAIN["seq"], config.vocab_size))
+        tokens = sharding.shard_batch(tokens, mesh).cuda()
+        step = train.make_train_step(config, mesh, optimizer)
+        torch.cuda.synchronize()
+        log("sharded", step="init", mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            seconds=time.perf_counter() - t0, weights_gib=torch.cuda.memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        recs = []
+        for i in range(TRAIN["warmup"] + TRAIN["timed"]):
+            if i == TRAIN["warmup"]:
+                # The bitwise gate: after the same steps, every leaf as phase 5's.
+                for host, leaf in zip(trained["after_warmup"], transformer.leaves(params)):
+                    if not _equal(host, leaf.detach().to_local().cpu()):
+                        raise AssertionError("a sharded leaf differs from the unsharded step's")
+            before = A.kernel_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = float(step(params, tokens))
+            torch.cuda.synchronize()
+            after = A.kernel_launches()
+            recs.append({"loss": loss, "step_ms": (time.perf_counter() - t1) * 1e3,
+                         "launches": {k: after[k] - before[k] for k in after}})
+        train_launches = entry.kernel_launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        losses = [r["loss"] for r in recs]
+        if losses[:TRAIN["warmup"]] != trained["losses"][:TRAIN["warmup"]]:
+            raise AssertionError(f"sharded losses {losses} differ from the unsharded "
+                                 f"{trained['losses']}")
+        for r in recs:
+            if set(r["launches"].values()) != {config.n_layers}:
+                raise AssertionError(f"sharded step launched {r['launches']}, not "
+                                     f"{config.n_layers} each")
+        timed = [r["step_ms"] for r in recs[TRAIN["warmup"]:]]
+        step_ms = sum(timed) / len(timed)
+        log("sharded", step="train", losses=losses, bitwise_equal_unsharded=True,
+            step_ms=[r["step_ms"] for r in recs], step_ms_mean=step_ms,
+            unsharded_step_ms_mean=trained["step_ms_mean"],
+            ratio=step_ms / trained["step_ms_mean"], peak_memory_gib=peak_gib,
+            launches=train_launches)
+        if profile:
+            profile_train_step(params, optimizer, tokens, config, step_ms,
+                               window="sharded_train_step", mesh=mesh)
+        del params, optimizer, step, tokens
+        torch.cuda.empty_cache()
+
+        # (b) Phase 4's first prompt through the sharded serving path.
+        t0 = time.perf_counter()
+        config, params = serve.build("llama3_8b", seed, "cuda", mesh=mesh)
+        prompt = sharding.shard_batch(served["prompt0"], mesh).cuda()
+        # A short warm-up request first, as phase 4 runs one, so that the
+        # decode rate is compared warm with warm.
+        serve.run_request(params, prompt[:1, :256], config, 2, mesh=mesh)
+        _reset_launches()
+        res = serve.run_request(params, prompt, config, SHARDED_SERVE["new_tokens"], mesh=mesh)
+        serve_launches = entry.kernel_launches()
+        want = served["tokens0"][:, :SHARDED_SERVE["new_tokens"]]
+        if not torch.equal(res["tokens"].cpu(), want):
+            raise AssertionError("sharded serving tokens differ from phase 4's")
+        if serve_launches["flash_fwd"] != config.n_layers:
+            raise AssertionError(f"sharded prefill launched the flash kernel "
+                                 f"{serve_launches['flash_fwd']} times for {config.n_layers} layers")
+        log("sharded", step="serve", **SHARDED_SERVE, ttft_ms=res["ttft_ms"],
+            decode_tok_s=res["decode_tok_s"], tokens_equal_unsharded=True,
+            launches=serve_launches, seconds=time.perf_counter() - t0)
+        if profile:
+            profile_request(params, prompt, config, res, SHARDED_SERVE["new_tokens"], mesh,
+                            window="sharded_")
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    # (c) A gang across cards, where the machine has them.
+    ranks = 1
+    if torch.cuda.device_count() >= 2:
+        result = dryrun.dryrun(2, rows=("fsdp", "fsdp_tp"), device="cuda")
+        ranks = 2
+        log("sharded", step="gang", **result)
+    log("sharded", step="summary", nccl_ranks=ranks, step_ms_mean=step_ms,
+        unsharded_step_ms_mean=trained["step_ms_mean"])
+    return {k: train_launches[k] + serve_launches[k] for k in train_launches}
+
+
 def device_time_rows(prof) -> list:
     """(device ms, kernel name, launches) by kernel, largest first. User
     annotations (``Optimizer.step``'s range) are not kernels: their device
@@ -898,16 +1066,16 @@ def port_kernel_rows(rows) -> list:
 
 
 def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float,
-                       window: str = "train_step") -> None:
-    """Device time by kernel over one training step; the idle share is taken
-    against the mean unprofiled step time."""
+                       window: str = "train_step", mesh=None) -> None:
+    """Device time by kernel over one training step (sharded on ``mesh``);
+    the idle share is taken against the mean unprofiled step time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from hivedscheduler_tpu_torch.models import train
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        float(train.train_step(params, optimizer, tokens, config, tokens.device))
+        float(train.train_step(params, optimizer, tokens, config, tokens.device, mesh))
         torch.cuda.synchronize()
     rows = device_time_rows(prof)
     busy_ms = sum(r[0] for r in rows)
@@ -918,17 +1086,19 @@ def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float,
         port_kernels=port_kernel_rows(rows))
 
 
-def profile_request(params, prompt, config, unprofiled: dict) -> None:
-    """Device time by kernel over one request, prefill and decode apart
-    (torch.profiler, kernel events only). The idle share is taken against
-    the same request's wall time without the profiler (``unprofiled``)."""
+def profile_request(params, prompt, config, unprofiled: dict, new_tokens: int = SERVE["new_tokens"],
+                    mesh=None, window: str = "") -> None:
+    """Device time by kernel over one request (sharded on ``mesh``), prefill
+    and decode apart (torch.profiler, kernel events only). The idle share is
+    taken against the same request's wall time without the profiler
+    (``unprofiled``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from hivedscheduler_tpu_torch.models import generate
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    stream = generate.generate_stream(params, prompt, config, SERVE["new_tokens"])
+    stream = generate.generate_stream(params, prompt, config, new_tokens, mesh=mesh)
     with profile(activities=activities) as prefill:
         next(stream)
         torch.cuda.synchronize()
@@ -938,12 +1108,12 @@ def profile_request(params, prompt, config, unprofiled: dict) -> None:
         torch.cuda.synchronize()
     walls = {
         "prefill": unprofiled["ttft_ms"],
-        "decode": 1e3 * prompt.shape[0] * (SERVE["new_tokens"] - 1) / unprofiled["decode_tok_s"],
+        "decode": 1e3 * prompt.shape[0] * (new_tokens - 1) / unprofiled["decode_tok_s"],
     }
     for name, prof in (("prefill", prefill), ("decode", decode)):
         rows = device_time_rows(prof)
         busy_ms = sum(r[0] for r in rows)
-        log("profile", window=name, wall_ms_unprofiled=walls[name],
+        log("profile", window=window + name, wall_ms_unprofiled=walls[name],
             device_busy_ms=busy_ms, idle_share=1 - busy_ms / walls[name],
             kernel_launches=sum(r[2] for r in rows),
             top=[{"kernel": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:10]],
@@ -956,7 +1126,7 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over one request, "
                              "over one training step and over one step of the "
-                             "perf harness's model")
+                             "perf harness's model, unsharded and sharded")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel checks and timings (phase 3)")
     args = parser.parse_args()
@@ -990,6 +1160,7 @@ def main() -> int:
     t = timed("train", phase_train, args.seed, args.profile)
     w = timed("workloads", phase_workloads, args.seed)
     p = timed("perf", phase_perf, args.profile)
+    sh = timed("sharded", phase_sharded, args.seed, args.profile, s, t)
 
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     kernels = [{
@@ -997,15 +1168,23 @@ def main() -> int:
         "route": "cuda",
         "source": source + "flash_fwd.cu",
         "replaces": "hivedscheduler_tpu/ops/attention.py:133",
-        "launches": s["launches"] + t["launches"]["flash_fwd"] + w["flash_fwd"] + p["flash_fwd"],
+        "launches": (s["launches"] + t["launches"]["flash_fwd"] + w["flash_fwd"] + p["flash_fwd"]
+                     + sh["flash_fwd"]),
         "launches_by_path": {"serve": s["launches"], "train": t["launches"]["flash_fwd"],
-                             "workloads": w["flash_fwd"], "perf": p["flash_fwd"]},
+                             "workloads": w["flash_fwd"], "perf": p["flash_fwd"],
+                             "sharded": sh["flash_fwd"]},
         # Held at the serving shape and at the training shape.
         "max_abs_err": max(k["o_max_abs_err"], kb["fwd"]["o_max_abs_err"]),
         **{key + suffix: fields[src] for suffix, fields in (("", k), ("_train", kb["fwd"]))
            for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
                             ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
                             ("library_ms", "library_ms"), ("tflops", "kernel_tflops"))},
+        # One rank of a tp gang at the training shape (phase 3).
+        "tp_shapes": [{"tp": r["tp"], "shape": r["shape"], "max_abs_err": r["fwd"]["o_max_abs_err"],
+                       **{key: r["fwd"][src] for key, src in (
+                           ("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+                           ("bound_by", "bound_by"), ("library_ms", "library_ms"))}}
+                      for r in kb["tp_shapes"]],
     }]
     for name, kind, line in (("flash_bwd_dkdv", "dkdv", 201), ("flash_bwd_dq", "dq", 278)):
         kernels.append({
@@ -1013,9 +1192,9 @@ def main() -> int:
             "route": "cuda",
             "source": source + "flash_bwd.cu",
             "replaces": f"hivedscheduler_tpu/ops/attention.py:{line}",
-            "launches": t["launches"][name] + w[name] + p[name],
+            "launches": t["launches"][name] + w[name] + p[name] + sh[name],
             "launches_by_path": {"train": t["launches"][name], "workloads": w[name],
-                                 "perf": p[name]},
+                                 "perf": p[name], "sharded": sh[name]},
             "max_abs_err": kb[f"{kind}_max_abs_err"],
             "ms": kb[kind]["ms"],
             "plain_ms": kb[kind]["plain_ms"],
@@ -1024,6 +1203,12 @@ def main() -> int:
             # SDPA's whole backward (dQ, dK and dV in one call): compare it
             # with the two kernels' sum.
             "library_ms": kb["library_ms"],
+            "tp_shapes": [{"tp": r["tp"], "shape": r["shape"],
+                           "max_abs_err": (r["dkdv_max_abs_err"] if kind == "dkdv"
+                                           else r["dq_max_abs_err"]),
+                           **{key: r[kind][key] for key in
+                              ("ms", "plain_ms", "bound_ms", "bound_by")},
+                           "library_ms": r["library_ms"]} for r in kb["tp_shapes"]],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -14,11 +14,16 @@ hand-written flash-attention forward, KV-cache decode, int8 linears;
 step (AdamW on f32 master weights, bf16 compute, remat, the hand-written
 flash-attention backward; ``python -m hivedscheduler_tpu_torch.train``),
 and what a job placed by the scheduler needs around them: the boot from
-the scheduler's env block (``workloads/``, ``parallel/mesh.py``), token
-files with prefetch to the card (``utils/data.py``), checkpoints
-(``models/checkpoint.py``) and the perf harness
-(``python -m hivedscheduler_tpu_torch.models.perf``,
-``tools/mfu_sweep.py``).
+the scheduler's env block and its card grant (``workloads/``,
+``parallel/mesh.py``), token files with prefetch to the card
+(``utils/data.py``), checkpoints (``models/checkpoint.py``) and the perf
+harness (``python -m hivedscheduler_tpu_torch.models.perf``,
+``tools/mfu_sweep.py``). Both jobs also run as multi-process gangs: the
+sharded step and serving mesh (``parallel/sharding.py``: ZeRO-3 over dp x
+fsdp, tensor parallelism over tp, placed by the JAX package's rule table),
+checkpoints that move between layouts, and the gang dryrun
+(``python -m hivedscheduler_tpu_torch.tools.dryrun 4``). Sequence,
+pipeline and expert parallelism are not ported yet.
 """
 
 from __future__ import annotations

@@ -11,6 +11,9 @@ part (DCP's collective save).
 Tensors load in place into the tree they are given, in its dtypes and on
 its devices: f32 training masters restored into a bf16 serving tree are
 rounded once, and ``restore_params`` reads no byte of the optimizer state.
+A tree of DTensors (a sharded job's, ``models/train.init_sharded``) loads
+each rank's block, so a step written by one layout restores under another:
+one process to a gang and back, bit for bit.
 """
 
 from __future__ import annotations
@@ -118,9 +121,9 @@ class TrainCheckpointer:
     ) -> Tuple[Any, torch.optim.Optimizer, int]:
         """Load step ``step`` (default: the latest) into ``params_like``
         (in place, in its dtypes) and ``optimizer`` (its state built anew
-        from the checkpoint: each state tensor the shape of its parameter on
-        that parameter's device, scalars such as AdamW's ``step`` on the
-        CPU, as torch keeps them). Returns (params, optimizer, step)."""
+        from the checkpoint: each state tensor shaped and placed like its
+        parameter, scalars such as AdamW's ``step`` on the CPU, as torch
+        keeps them). Returns (params, optimizer, step)."""
         step, path = self._resolve(step)
         params = [p for g in optimizer.param_groups for p in g["params"]]
         metadata = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
@@ -131,8 +134,13 @@ class TrainCheckpointer:
             if isinstance(md, TensorStorageMetadata):
                 parts = fqn.split(".")
                 p = params[int(parts[2])] if parts[1] == "state" else None
-                device = p.device if p is not None and p.shape == md.size else "cpu"
-                flat[fqn] = torch.empty(md.size, dtype=md.properties.dtype, device=device)
+                if p is not None and p.shape == md.size:
+                    # A moment takes its parameter's device and, for a
+                    # DTensor parameter, its placements: DCP then reads
+                    # this rank's block, whatever layout wrote the step.
+                    flat[fqn] = torch.empty_like(p, dtype=md.properties.dtype)
+                else:
+                    flat[fqn] = torch.empty(md.size, dtype=md.properties.dtype, device="cpu")
             else:
                 flat[fqn] = None  # a plain object, replaced by the load
         loaded = {"params": params_like, **flat}

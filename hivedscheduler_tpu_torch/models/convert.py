@@ -39,8 +39,12 @@ def params_from_jax(
 
 def params_to_numpy(tree: Any) -> Any:
     """The inverse of ``params_from_jax``: a tree of numpy arrays on the
-    host, float leaves as f32, int8 leaves as int8."""
+    host, float leaves as f32, int8 leaves as int8. DTensor leaves are
+    gathered whole, so every rank of their mesh must call it."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
-    t = tree.detach().cpu()
+    t = tree.detach()
+    if hasattr(t, "full_tensor"):  # a DTensor: the whole leaf (a collective)
+        t = t.full_tensor()
+    t = t.cpu()
     return t.numpy().copy() if t.dtype == torch.int8 else t.float().numpy().copy()

@@ -13,22 +13,30 @@ Counterpart of ``hivedscheduler_tpu/models/generate.py``, in eager PyTorch:
 - ``generate_scan``/``generate_greedy_scan`` keep the JAX names and
   semantics as Python loops (CUDA graphs are later work);
 - sampling draws from a ``torch.Generator``, so its stream differs from
-  ``jax.random``'s: the two agree in distribution, not token by token.
+  ``jax.random``'s: the two agree in distribution, not token by token;
+- on an active mesh (``parallel/sharding.is_active``) the weights are
+  DTensors (tp shards, gathered over fsdp a layer at a time), the prompt
+  and the cache hold this rank's batch rows and its KV heads, the flash
+  prefill runs on that block, and the logits are gathered over tp before
+  sampling, so the ranks of a tp group sample from the same logits.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterator, Optional, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import Device, resolve_device
+from ..parallel import sharding
 from ..ops.attention import NEG_INF, mha
 from .quantize import quantized_matmul as _mm
-from .transformer import Params, TransformerConfig, cast, layer, rms_norm, rope
+from .transformer import (
+    Params, TransformerConfig, cast, gather_head, gather_layer, layer, rms_norm, rope,
+)
 
 
 @dataclasses.dataclass
@@ -38,11 +46,26 @@ class KVCache:
     length: int  # filled positions
 
 
+def _heads_local(config: TransformerConfig, batch: int, mesh: Any) -> bool:
+    """True where the ranks of the tp group each attend their own heads
+    (``sharding.mha_shardable``); False where they attend all of them."""
+    if not sharding.is_active(mesh):
+        return True
+    dpf = sharding.axes_size(sharding.BATCH_AXES, mesh)
+    return sharding.mha_shardable(batch * dpf, config.n_heads, config.n_kv_heads, mesh)
+
+
 def init_cache(
-    config: TransformerConfig, batch: int, max_len: int, device: Device = None
+    config: TransformerConfig, batch: int, max_len: int, device: Device = None,
+    mesh: Any = None,
 ) -> KVCache:
+    """An empty cache for ``batch`` rows (on an active mesh: this rank's
+    rows and the KV heads it attends)."""
     c = config
-    shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
+    kv = c.n_kv_heads
+    if sharding.is_active(mesh) and _heads_local(c, batch, mesh):
+        kv //= sharding.axes_size("tp", mesh)
+    shape = (c.n_layers, batch, max_len, kv, c.head_dim)
     device = resolve_device(device)
     return KVCache(
         k=torch.zeros(shape, dtype=c.dtype, device=device),
@@ -56,18 +79,16 @@ def _attend_cached(
     k_cache: torch.Tensor,  # [B, S_max, Hkv, D]
     v_cache: torch.Tensor,
     q_offset: int,  # absolute position of q[:, 0]
-    config: TransformerConfig,
 ) -> torch.Tensor:
     """Causal attention of T queries over the cache, GQA as a grouped einsum
     (no repeat of the cache). Only the filled prefix ``q_offset + T`` is
     read: the empty slots beyond it are masked in the JAX package and add
     exactly zero there."""
-    c = config
     b, t, h, d = q.shape
+    hkv = k_cache.shape[2]
     n = q_offset + t
     kc, vc = k_cache[:, :n], v_cache[:, :n]
-    g = h // c.n_kv_heads
-    qg = q.reshape(b, t, c.n_kv_heads, g, d)
+    qg = q.reshape(b, t, hkv, h // hkv, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), kc.float()) / math.sqrt(d)
     q_pos = q_offset + torch.arange(t, device=q.device)[:, None]
     k_pos = torch.arange(n, device=q.device)[None, :]
@@ -85,19 +106,26 @@ def _block_cached(
     pos: int,
     config: TransformerConfig,
     attn_mode: str = "auto",
+    mesh: Any = None,
 ) -> torch.Tensor:
     """One decoder block over cached KV. ``attn_mode``: "flash" = fresh-cache
     prefill, prompt-only causal attention through ``mha``; "cached" =
     attention over the cache (decode, chunked prefill); "auto" = "flash"
-    when ``pos == 0``, else "cached"."""
+    when ``pos == 0``, else "cached". On an active mesh ``layer`` holds this
+    rank's tp shards, as in ``transformer._block``."""
     if attn_mode not in ("auto", "flash", "cached"):
         raise ValueError(f"unknown attn_mode {attn_mode!r}")
     c = config
     b, t, _ = x.shape
     h = rms_norm(x, layer["ln1"])
-    q = _mm(h, layer["wq"]).reshape(b, t, c.n_heads, c.head_dim)
-    k = _mm(h, layer["wk"]).reshape(b, t, c.n_kv_heads, c.head_dim)
-    v = _mm(h, layer["wv"]).reshape(b, t, c.n_kv_heads, c.head_dim)
+    q, k, v = _mm(h, layer["wq"]), _mm(h, layer["wk"]), _mm(h, layer["wv"])
+    width = q.shape[-1]
+    gathered = not _heads_local(c, b, mesh)
+    if gathered:  # the JAX package's fallback: every head on every tp rank
+        q, k, v = (sharding.gather_tp(y, 2, mesh) for y in (q, k, v))
+    q = q.reshape(b, t, -1, c.head_dim)
+    k = k.reshape(b, t, -1, c.head_dim)
+    v = v.reshape(b, t, -1, c.head_dim)
     positions = pos + torch.arange(t, device=x.device)
     q = rope(q, positions, c.rope_theta)
     k = rope(k, positions, c.rope_theta)
@@ -108,11 +136,14 @@ def _block_cached(
     if t > 1 and attn_mode == "flash":
         attn = mha(q, k, v, causal=True).to(q.dtype)
     else:  # a decode step (t == 1) or a chunked prefill
-        attn = _attend_cached(q, k_cache, v_cache, pos, c)
-    x = x + _mm(attn.reshape(b, t, c.n_heads * c.head_dim), layer["wo"])
+        attn = _attend_cached(q, k_cache, v_cache, pos)
+    attn = attn.reshape(b, t, -1)
+    if gathered:
+        attn = attn.narrow(2, mesh.get_local_rank("tp") * width, width)
+    x = x + sharding.reduce_from_tp(_mm(attn, layer["wo"]), mesh)
     hh = rms_norm(x, layer["ln2"])
     out = _mm(F.silu(_mm(hh, layer["w_gate"])) * _mm(hh, layer["w_up"]), layer["w_down"])
-    return x + out
+    return x + sharding.reduce_from_tp(out, mesh)
 
 
 @torch.inference_mode()
@@ -123,29 +154,44 @@ def _forward_cached(
     config: TransformerConfig,
     attn_mode: str = "auto",
     last_only: bool = False,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Logits [B, T, V] f32 (``last_only``: [B, 1, V], the LM head applied to
-    the last position alone) and the cache, advanced by T."""
+    the last position alone) and the cache, advanced by T. On an active
+    mesh, ``tokens`` and the logits are this rank's rows, every vocab id."""
     c = config
-    params = cast(params, c.dtype)  # int8 leaves stay int8
-    x = params["embed"][tokens]
     pos = cache.length
     if pos + tokens.shape[1] > cache.k.shape[2]:
         raise ValueError(
             f"cache of {cache.k.shape[2]} positions cannot take "
             f"{tokens.shape[1]} more after {pos}"
         )
+    if sharding.is_active(mesh):
+        local = sharding.to_local(params)
+
+        def layer_at(i):
+            return gather_layer(layer(local["layers"], i), c, mesh)
+
+        x = sharding.embed_lookup(local["embed"], tokens, mesh, c.dtype)
+        ln_f = local["ln_f"].to(c.dtype)
+        head = gather_head(local, c, mesh)
+    else:
+        params = cast(params, c.dtype)  # int8 leaves stay int8
+        x = params["embed"][tokens]
+        ln_f = params["ln_f"]
+        head = params["embed"].T if c.tied_embeddings else params["lm_head"]
+
+        def layer_at(i):
+            return layer(params["layers"], i)
+
     for i in range(c.n_layers):
-        x = _block_cached(
-            x, layer(params["layers"], i), cache.k[i], cache.v[i], pos, c, attn_mode
-        )
+        x = _block_cached(x, layer_at(i), cache.k[i], cache.v[i], pos, c, attn_mode, mesh)
     if last_only:
         x = x[:, -1:]
-    x = rms_norm(x, params["ln_f"])
-    if c.tied_embeddings:
-        logits = x @ params["embed"].T
-    else:
-        logits = _mm(x, params["lm_head"])
+    x = rms_norm(x, ln_f)
+    logits = _mm(x, head)
+    if sharding.is_active(mesh):
+        logits = sharding.gather_tp(logits, 2, mesh)
     cache.length = pos + tokens.shape[1]
     return logits.float(), cache
 
@@ -156,17 +202,24 @@ def prefill(
     cache: KVCache,
     config: TransformerConfig,
     chunked: Optional[bool] = None,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Fill the cache with the prompt; returns (last-position logits [B, V],
     cache). A fresh cache takes the flash program, a cache with history the
-    cached one. ``chunked`` forces the choice: ``chunked=False`` asserts a
-    fresh cache (prompt-only attention, wrong if the cache holds history)."""
+    cached one. ``chunked`` forces the choice; ``chunked=False`` (the flash
+    program, prompt-only attention) on a cache with history raises: it
+    would ignore the history."""
     if chunked is None:
         mode = "flash" if cache.length == 0 else "cached"
     else:
         mode = "cached" if chunked else "flash"
+    if mode == "flash" and cache.length > 0:
+        raise ValueError(
+            f"prefill(chunked=False) needs a fresh cache; this one holds "
+            f"{cache.length} positions (use chunked=None or True)"
+        )
     logits, cache = _forward_cached(
-        params, prompt, cache, config, mode, last_only=True
+        params, prompt, cache, config, mode, last_only=True, mesh=mesh
     )
     return logits[:, -1], cache
 
@@ -176,9 +229,10 @@ def decode_step(
     token: torch.Tensor,  # [B]: previous token
     cache: KVCache,
     config: TransformerConfig,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decoding step; returns (logits [B, V], cache)."""
-    logits, cache = _forward_cached(params, token[:, None], cache, config)
+    logits, cache = _forward_cached(params, token[:, None], cache, config, mesh=mesh)
     return logits[:, 0], cache
 
 
@@ -223,18 +277,21 @@ def generate_stream(
     generator: Optional[torch.Generator] = None,
     top_k: int = 0,
     top_p: float = 1.0,
+    mesh: Any = None,
 ) -> Iterator[torch.Tensor]:
     """Yield the ``max_new_tokens`` new tokens, each [B], as they are made:
-    a flash prefill of a fresh cache, then one decode step per token."""
+    a flash prefill of a fresh cache, then one decode step per token. On
+    an active ``mesh``, ``prompt`` is this rank's rows; the ranks of a tp
+    group must pass generators in the same state."""
     b, t = prompt.shape
-    cache = init_cache(config, b, t + max_new_tokens, device=prompt.device)
-    logits, cache = prefill(params, prompt, cache, config)
+    cache = init_cache(config, b, t + max_new_tokens, device=prompt.device, mesh=mesh)
+    logits, cache = prefill(params, prompt, cache, config, mesh=mesh)
     token = sample_logits(logits, generator, temperature, top_k, top_p)
     for i in range(max_new_tokens):
         yield token
         if i == max_new_tokens - 1:
             break
-        logits, cache = decode_step(params, token, cache, config)
+        logits, cache = decode_step(params, token, cache, config, mesh)
         token = sample_logits(logits, generator, temperature, top_k, top_p)
 
 

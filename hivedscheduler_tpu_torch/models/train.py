@@ -1,22 +1,25 @@
-"""Single-device training step: next-token loss, AdamW, f32 master weights.
+"""Training step: next-token loss, AdamW, f32 master weights, on one
+device or sharded over a mesh.
 
-Counterpart of ``hivedscheduler_tpu/models/train.py`` on one device. The
-model computes in ``config.dtype`` from f32 master parameters
-(``transformer.forward_hidden`` casts on entry), each block checkpointed
+Counterpart of ``hivedscheduler_tpu/models/train.py``. The model computes
+in ``config.dtype`` from f32 master parameters, each block checkpointed
 under ``config.remat_policy``; attention's backward runs the hand-written
-flash backward kernels. The mesh functions (``shardings_for``,
-``init_sharded``, ``make_train_step``) belong to the distributed slice.
+flash backward kernels. On a mesh (``init_sharded``, ``make_train_step``)
+the parameters and AdamW's moments are DTensors placed by the rule table
+(ZeRO-3 over fsdp, tp over heads/mlp/vocab, dp replicating), the batch is
+each rank's rows, and the step's collectives are ``parallel/sharding.py``'s.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import Device, resolve_device
+from ..parallel import sharding
 from . import transformer
 
 Params = transformer.Params
@@ -76,19 +79,28 @@ def next_token_loss(
     config: transformer.TransformerConfig,
     fused: Optional[bool] = None,
     chunk: int = _LOSS_CHUNK,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1]. The whole
     sequence goes through the model; the last position is not scored.
-    ``fused`` (default: vocab >= FUSED_LOSS_MIN_VOCAB) takes the chunked
-    logsumexp."""
+    ``fused`` (default: vocab >= FUSED_LOSS_MIN_VOCAB and the vocab not
+    sharded over tp) takes the chunked logsumexp. On an active mesh the
+    loss is the mean over this rank's rows, and with tp > 1 the
+    log-softmax is vocab-parallel over the tp-sharded logits."""
+    tp = sharding.axes_size("tp", mesh) if sharding.is_active(mesh) else 1
     if fused is None:
-        fused = config.vocab_size >= FUSED_LOSS_MIN_VOCAB
+        fused = config.vocab_size >= FUSED_LOSS_MIN_VOCAB and tp == 1
     targets = tokens[:, 1:]
     if fused:
-        x, head = transformer.forward_hidden(params, tokens, config)
+        if tp > 1:
+            raise ValueError("the fused loss needs the vocab whole (tp == 1)")
+        x, head = transformer.forward_hidden(params, tokens, config, mesh)
         b, s, d = x.shape
         return _chunked_ce(x[:, :-1].reshape(b * (s - 1), d), head, targets.reshape(-1), chunk)
-    logits = transformer.forward(params, tokens, config)  # [B, S, V] f32
+    logits = transformer.forward(params, tokens, config, mesh)  # [B, S, V/tp] f32
+    if tp > 1:
+        v = logits.shape[-1]
+        return sharding.vocab_parallel_nll(logits[:, :-1].reshape(-1, v), targets.reshape(-1), mesh)
     logp = F.log_softmax(logits[:, :-1], dim=-1)
     return -logp.gather(-1, targets[..., None])[..., 0].mean()
 
@@ -114,18 +126,66 @@ def train_step(
     tokens: torch.Tensor,
     config: transformer.TransformerConfig,
     device: Device = None,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """One step: loss, backward, AdamW update of ``params`` in place.
     ``tokens`` may be any integer dtype (a token file's int32 rows). Returns
     the loss (a detached scalar, not synchronised). Runs on CUDA
     unless ``device`` names another; the parameters must live there. The
-    step's gradients stay in each leaf's ``.grad`` until the next step."""
+    step's gradients stay in each leaf's ``.grad`` until the next step.
+    On an active ``mesh``, ``tokens`` are this rank's rows; the gradients
+    and the returned loss are those of the global batch's mean loss."""
     device = resolve_device(device)
     first = transformer.leaves(params)[0]
     if first.device.type != device.type:
         raise ValueError(f"parameters on {first.device}, step asked for {device}")
     optimizer.zero_grad(set_to_none=True)
-    loss = next_token_loss(params, tokens.to(device=device, dtype=torch.long), config)
+    loss = next_token_loss(params, tokens.to(device=device, dtype=torch.long), config, mesh=mesh)
     loss.backward()
+    if sharding.is_active(mesh):
+        sharding.reduce_gradients(transformer.leaves(params), mesh)
+        loss = sharding.mean_over_batch(loss, mesh)
     optimizer.step()
     return loss.detach()
+
+
+def shardings_for(
+    config: transformer.TransformerConfig, mesh: Any
+) -> Tuple[Params, Dict[str, Any]]:
+    """The placements of a train state: (the parameters', AdamW's state).
+    AdamW's two moments take their parameter's placements leaf for leaf
+    (``zeros_like`` of a DTensor parameter); its ``step`` is a replicated
+    CPU scalar (None here)."""
+    param_pl = sharding.tree_shardings(sharding.param_mesh(mesh), transformer.logical_axes(config))
+    return param_pl, {"exp_avg": param_pl, "exp_avg_sq": param_pl, "step": None}
+
+
+def init_sharded(
+    config: transformer.TransformerConfig,
+    mesh: Any,
+    generator: torch.Generator,
+    device: Device = None,
+    learning_rate: float = 3e-4,
+    weight_decay: float = 0.1,
+) -> Tuple[Params, torch.optim.AdamW]:
+    """f32 master parameters straight into their placements
+    (``transformer.init_distributed``: no rank ever holds more than one
+    whole leaf, and the values are ``transformer.init``'s from the same
+    generator) and their AdamW, whose moments take the placements of
+    :func:`shardings_for`. Returns (params, optimizer)."""
+    params = transformer.init_distributed(config, mesh, generator, device, torch.float32)
+    return params, make_optimizer(params, learning_rate, weight_decay)
+
+
+def make_train_step(
+    config: transformer.TransformerConfig, mesh: Any, optimizer: torch.optim.Optimizer
+) -> Callable[[Params, torch.Tensor], torch.Tensor]:
+    """The sharded step, ``step(params, tokens) -> loss``: ``tokens`` are
+    this rank's rows (``sharding.shard_batch``), the loss the global
+    mean."""
+    device = mesh.device_type
+
+    def step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return train_step(params, optimizer, tokens, config, device, mesh)
+
+    return step

@@ -1,15 +1,21 @@
-"""Llama-style decoder-only transformer, single device.
+"""Llama-style decoder-only transformer, on one device or a mesh.
 
 Counterpart of ``hivedscheduler_tpu/models/transformer.py``. Parameters are
 a plain dict in the JAX package's layout: stacked per-layer leaves
 ``[n_layers, ...]`` and ``[in, out]`` matrices applied as ``x @ W``, so a
 JAX parameter tree converts without transposes (``models/convert.py``).
-Attention goes through ``ops.attention.mha`` (the flash kernels for long
-self-attention, forward and backward). Training keeps f32 master
-parameters and casts them to the compute dtype on entry, as the JAX
-package does; ``remat`` checkpoints each block (``torch.utils.checkpoint``)
-under one of the JAX package's four policies. Meshes, sequence and pipeline
-parallelism belong to later slices of the port.
+Attention goes through ``parallel.sharding.sharded_mha`` into
+``ops.attention.mha`` (the flash kernels for long self-attention, forward
+and backward). Training keeps f32 master parameters and casts them to the
+compute dtype, as the JAX package does; ``remat`` checkpoints each block
+(``torch.utils.checkpoint``) under one of the JAX package's four policies.
+
+With an active ``mesh`` the parameters are DTensors placed by
+``logical_axes`` and the rule table (``init_distributed``), each block
+gathers its layer over fsdp inside its checkpoint and runs Megatron tensor
+parallelism over tp; the stacked tree stays the public layout, so
+checkpoints and ``convert.py`` see the same names on one process and a
+gang. Sequence and pipeline parallelism belong to later slices.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +34,8 @@ from torch.utils.checkpoint import (
 )
 
 from .. import Device, resolve_device
-from ..ops.attention import mha  # also registers torch.ops.hived.flash_fwd
+from ..ops.attention import mha  # noqa: F401 (registers torch.ops.hived.flash_fwd)
+from ..parallel import sharding
 
 Params = Dict[str, Any]
 REMAT_POLICIES = ("full", "dots", "flash", "dots+flash")
@@ -89,16 +96,14 @@ def tiny(vocab: int = 512) -> TransformerConfig:
     )
 
 
-def init(
+def init_leaves(
     config: TransformerConfig,
     generator: torch.Generator,
     device: Device = None,
     dtype: Optional[torch.dtype] = None,
-) -> Params:
-    """Random parameters, normal / sqrt(fan_in) as in the JAX package, drawn
-    directly on the device in ``dtype``: the compute dtype by default
-    (serving needs no f32 master copy), ``torch.float32`` for training's
-    master parameters. ``generator`` lives on ``device``."""
+) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """Each parameter as (path, tensor), drawn one at a time in ``init``'s
+    order: ``init`` and ``init_distributed`` consume the same stream."""
     c = config
     device = resolve_device(device)
     dtype = c.dtype if dtype is None else dtype
@@ -114,24 +119,105 @@ def init(
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    params: Params = {
-        "embed": norm(1, (c.vocab_size, d)),
-        "layers": {
-            "ln1": ones((L, d)),
-            "wq": norm(d, (L, d, h * dh)),
-            "wk": norm(d, (L, d, hk * dh)),
-            "wv": norm(d, (L, d, hk * dh)),
-            "wo": norm(h * dh, (L, h * dh, d)),
-            "ln2": ones((L, d)),
-            "w_gate": norm(d, (L, d, f)),
-            "w_up": norm(d, (L, d, f)),
-            "w_down": norm(f, (L, f, d)),
-        },
-        "ln_f": ones((d,)),
-    }
+    yield ("embed",), norm(1, (c.vocab_size, d))
+    yield ("layers", "ln1"), ones((L, d))
+    yield ("layers", "wq"), norm(d, (L, d, h * dh))
+    yield ("layers", "wk"), norm(d, (L, d, hk * dh))
+    yield ("layers", "wv"), norm(d, (L, d, hk * dh))
+    yield ("layers", "wo"), norm(h * dh, (L, h * dh, d))
+    yield ("layers", "ln2"), ones((L, d))
+    yield ("layers", "w_gate"), norm(d, (L, d, f))
+    yield ("layers", "w_up"), norm(d, (L, d, f))
+    yield ("layers", "w_down"), norm(f, (L, f, d))
+    yield ("ln_f",), ones((d,))
     if not c.tied_embeddings:
-        params["lm_head"] = norm(d, (d, c.vocab_size))
-    return params
+        yield ("lm_head",), norm(d, (d, c.vocab_size))
+
+
+def _tree(items: Iterable[Tuple[Tuple[str, ...], Any]]) -> Params:
+    tree: Params = {}
+    for path, leaf in items:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def init(
+    config: TransformerConfig,
+    generator: torch.Generator,
+    device: Device = None,
+    dtype: Optional[torch.dtype] = None,
+) -> Params:
+    """Random parameters, normal / sqrt(fan_in) as in the JAX package, drawn
+    directly on the device in ``dtype``: the compute dtype by default
+    (serving needs no f32 master copy), ``torch.float32`` for training's
+    master parameters. ``generator`` lives on ``device``."""
+    return _tree(init_leaves(config, generator, device, dtype))
+
+
+def logical_axes(config: TransformerConfig) -> Params:
+    """Logical dim names per parameter; ``parallel/sharding.py`` maps them
+    to mesh axes (embed -> fsdp for ZeRO-3, heads/mlp/vocab -> tp)."""
+    axes: Params = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "ln1": ("layers", None),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "ln2": ("layers", None),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "ln_f": (None,),
+    }
+    if not config.tied_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def _place(
+    items: Iterable[Tuple[Tuple[str, ...], torch.Tensor]], config: TransformerConfig, mesh: Any
+) -> Params:
+    """DTensors on ``mesh``'s parameter sub-mesh from whole (path, leaf)
+    pairs, placed by the rule table: each rank keeps its shard of a leaf,
+    and the rest is freed before the next leaf is made."""
+    pmesh = sharding.param_mesh(mesh)
+    placements = {path: sharding.placements_for(axes, pmesh)
+                  for path, axes in _flatten(logical_axes(config))}
+    return _tree((path, sharding.distribute(leaf, placements[path], pmesh)) for path, leaf in items)
+
+
+def init_distributed(
+    config: TransformerConfig,
+    mesh: Any,
+    generator: torch.Generator,
+    device: Device = None,
+    dtype: Optional[torch.dtype] = None,
+) -> Params:
+    """``init``'s parameters as DTensors on ``mesh``, placed by the rule
+    table: each leaf is drawn whole on the device from ``generator`` (the
+    same stream as ``init``) and only this rank's shard is kept, so no rank
+    holds more than one whole leaf. Value for value ``init``'s."""
+    return _place(init_leaves(config, generator, device, dtype), config, mesh)
+
+
+def distribute(params: Params, config: TransformerConfig, mesh: Any) -> Params:
+    """A whole parameter tree (the same on every rank) as DTensors on
+    ``mesh``, placed by the rule table."""
+    return _place(_flatten(params), config, mesh)
+
+
+def _flatten(tree: Params, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, path + (k,))
+        else:
+            yield path + (k,), v
 
 
 def cast(tree: Any, dtype: torch.dtype) -> Any:
@@ -178,21 +264,50 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def _block(x: torch.Tensor, layer: Params, config: TransformerConfig) -> torch.Tensor:
-    """One pre-norm block: attention (flash kernel via ``mha``) + SwiGLU."""
+def _block(
+    x: torch.Tensor, layer: Params, config: TransformerConfig, mesh: Any = None
+) -> torch.Tensor:
+    """One pre-norm block: attention (flash kernels via
+    ``sharding.sharded_mha``) + SwiGLU. On an active mesh ``layer`` holds
+    this rank's tp shards (whole over fsdp): q/k/v and the MLP's gate and
+    up products are column-parallel, ``wo`` and ``w_down`` row-parallel,
+    each followed by the tp all-reduce that GSPMD inserts in JAX."""
     c = config
     b, s, _ = x.shape
-    h = rms_norm(x, layer["ln1"])
-    q = (h @ layer["wq"]).reshape(b, s, c.n_heads, c.head_dim)
-    k = (h @ layer["wk"]).reshape(b, s, c.n_kv_heads, c.head_dim)
-    v = (h @ layer["wv"]).reshape(b, s, c.n_kv_heads, c.head_dim)
+    h = sharding.copy_to_tp(rms_norm(x, layer["ln1"]), mesh)
     positions = torch.arange(s, device=x.device)
-    q = rope(q, positions, c.rope_theta)
-    k = rope(k, positions, c.rope_theta)
-    attn = mha(q, k, v, causal=True).reshape(b, s, c.n_heads * c.head_dim)
-    x = x + attn @ layer["wo"]
-    h = rms_norm(x, layer["ln2"])
-    return x + (F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])) @ layer["w_down"]
+    attn = sharding.sharded_mha(
+        h @ layer["wq"], h @ layer["wk"], h @ layer["wv"], mesh, c.n_heads, c.n_kv_heads,
+        rotary=lambda t: rope(t, positions, c.rope_theta),
+    )
+    x = x + sharding.reduce_from_tp(attn @ layer["wo"], mesh)
+    h = sharding.copy_to_tp(rms_norm(x, layer["ln2"]), mesh)
+    out = (F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])) @ layer["w_down"]
+    return x + sharding.reduce_from_tp(out, mesh)
+
+
+def gather_layer(layer: Params, config: TransformerConfig, mesh: Any) -> Params:
+    """One layer's shards, each cast to the compute dtype and gathered over
+    fsdp (its tp shard stays local): what ``_block`` takes on a mesh."""
+    axes = logical_axes(config)["layers"]
+    return {k: sharding.gather_param(v, sharding.fsdp_dim(axes[k][1:]), config.dtype, mesh)
+            for k, v in layer.items()}
+
+
+def gather_head(local: Params, config: TransformerConfig, mesh: Any) -> torch.Tensor:
+    """The LM head [D, V/tp] in the compute dtype from this rank's shards."""
+    if config.tied_embeddings:
+        return sharding.gather_param(local["embed"], 1, config.dtype, mesh).T
+    return sharding.gather_param(local["lm_head"], 0, config.dtype, mesh)
+
+
+def _sharded_block(
+    x: torch.Tensor, layer: Params, config: TransformerConfig, mesh: Any
+) -> torch.Tensor:
+    """``_block`` on one layer's f32 shards, gathered here so that under
+    remat backward gathers the layer again instead of keeping it (ZeRO-3,
+    one layer at a time)."""
+    return _block(x, gather_layer(layer, config, mesh), config, mesh)
 
 
 def _remat_policy(name: str) -> Callable:
@@ -221,28 +336,47 @@ def _unstack(layers: Params) -> List[Params]:
 
 
 def forward_hidden(
-    params: Params, tokens: torch.Tensor, config: TransformerConfig
+    params: Params, tokens: torch.Tensor, config: TransformerConfig, mesh: Any = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final normed hidden states [B, S, D] (compute dtype) and the LM-head
     weight [D, V]. Differentiable: with ``config.remat`` each block is
-    checkpointed under ``config.remat_policy`` when autograd records."""
+    checkpointed under ``config.remat_policy`` when autograd records.
+
+    On an active mesh (``sharding.is_active``) ``params`` are DTensors
+    placed by ``logical_axes`` and ``tokens`` this rank's rows
+    (``sharding.shard_batch``); the hidden states are this rank's rows and
+    the head its tp shard [D, V/tp]."""
     c = config
     context_fn = _remat_policy(c.remat_policy) if c.remat else None
-    params = cast(params, c.dtype)  # f32 master -> compute dtype
-    x = params["embed"][tokens]
-    for lp in _unstack(params["layers"]):
+    if sharding.is_active(mesh):
+        sharding.check_supported(mesh)
+        local = sharding.to_local(params)
+        x = sharding.embed_lookup(local["embed"], tokens, mesh, c.dtype)
+        block = functools.partial(_sharded_block, config=c, mesh=mesh)
+        layers = local["layers"]
+        ln_f = local["ln_f"].to(c.dtype)
+        head = gather_head(local, c, mesh)
+    else:
+        params = cast(params, c.dtype)  # f32 master -> compute dtype
+        x = params["embed"][tokens]
+        block = functools.partial(_block, config=c)
+        layers = params["layers"]
+        ln_f = params["ln_f"]
+        head = params["embed"].T if c.tied_embeddings else params["lm_head"]
+    for lp in _unstack(layers):
         if c.remat and torch.is_grad_enabled():
-            x = checkpoint(_block, x, lp, c, use_reentrant=False, context_fn=context_fn)
+            x = checkpoint(block, x, lp, use_reentrant=False, context_fn=context_fn)
         else:
-            x = _block(x, lp, c)
-    x = rms_norm(x, params["ln_f"])
-    head = params["embed"].T if c.tied_embeddings else params["lm_head"]
-    return x, head
+            x = block(x, lp)
+    return rms_norm(x, ln_f), head
 
 
 def forward(
-    params: Params, tokens: torch.Tensor, config: TransformerConfig
+    params: Params, tokens: torch.Tensor, config: TransformerConfig, mesh: Any = None
 ) -> torch.Tensor:
-    """Logits [B, S, V] in f32; ``tokens`` [B, S] int."""
-    x, head = forward_hidden(params, tokens, config)
+    """Logits [B, S, V] in f32; ``tokens`` [B, S] int. On an active mesh,
+    this rank's rows and its tp shard of the vocab, [B, S, V/tp]."""
+    x, head = forward_hidden(params, tokens, config, mesh)
+    if sharding.is_active(mesh):
+        x = sharding.copy_to_tp(x, mesh)
     return (x @ head).float()

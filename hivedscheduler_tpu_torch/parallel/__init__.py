@@ -1,3 +1,5 @@
-"""Process groups and device meshes (counterpart of
-``hivedscheduler_tpu/parallel``). Sharding rules, sequence and pipeline
-parallelism are later slices of the port."""
+"""Process groups, device meshes and sharding (counterpart of
+``hivedscheduler_tpu/parallel``): ``mesh.py`` boots a gang and lays out
+its mesh, ``sharding.py`` places parameters by the rule table and writes
+out the sharded step's collectives. Sequence and pipeline parallelism are
+later slices of the port."""

@@ -21,8 +21,9 @@ from __future__ import annotations
 
 import math
 import os
+import re
 from dataclasses import dataclass
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, MutableMapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -38,15 +39,46 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+GRANT_VAR = "TPU_VISIBLE_CHIPS"
+_GRANT = re.compile(r"\d+(,\d+)*")
+
+
+def apply_chip_grant(env: Optional[MutableMapping[str, str]] = None) -> None:
+    """Map the pod's granted cards into ``CUDA_VISIBLE_DEVICES``: the
+    scheduler's grant ``TPU_VISIBLE_CHIPS`` (the pod's own chip indices, as
+    HiveD's ``NVIDIA_VISIBLE_DEVICES`` is) becomes the set of cards CUDA
+    shows, unless ``CUDA_VISIBLE_DEVICES`` is already set. A grant that is
+    empty or not a comma list of integers raises. Touches no CUDA API: CUDA
+    reads the variable once, when it first initialises, so call this
+    before anything asks CUDA about its devices. One process drives the
+    pod's first granted card; one process per granted card is ROADMAP
+    queue 1 item 13."""
+    e = os.environ if env is None else env
+    grant = e.get(GRANT_VAR)
+    if grant is None:
+        return
+    if not _GRANT.fullmatch(grant.replace(" ", "")):
+        raise ValueError(f"{GRANT_VAR}={grant!r} is not a comma list of card indices")
+    e.setdefault("CUDA_VISIBLE_DEVICES", grant.replace(" ", ""))
+
+
+def cuda_index(env: Mapping[str, str], rank: int, visible: int) -> int:
+    """The card a process takes among the ``visible`` ones: the first when
+    the scheduler granted the pod its cards (one process a pod), else the
+    rank's modulo the count (processes sharing one node's cards)."""
+    return 0 if GRANT_VAR in env else rank % visible
+
+
 def initialize_from_env(
     env: Optional[Mapping[str, str]] = None, device: Device = None
 ) -> None:
     """Boot ``torch.distributed`` from the env block the scheduler injected
     at bind time: ``JAX_COORDINATOR_ADDRESS`` ("host:port") is the TCP
     rendezvous, ``JAX_NUM_PROCESSES`` the world size, ``JAX_PROCESS_ID``
-    the rank. NCCL on CUDA, gloo on the CPU; on CUDA the rank selects card
-    ``rank % device_count``. A no-op for a world of at most one process, and
-    when a default group already exists."""
+    the rank. NCCL on CUDA, gloo on the CPU; on CUDA the process takes card
+    ``cuda_index`` among the visible ones (``apply_chip_grant`` must have
+    run first). A no-op for a world of at most one process, and when a
+    default group already exists."""
     e = os.environ if env is None else env
     num = int(e.get("JAX_NUM_PROCESSES", "1"))
     if num <= 1 or dist.is_initialized():
@@ -54,7 +86,7 @@ def initialize_from_env(
     dev = resolve_device(device)
     rank = int(e["JAX_PROCESS_ID"])
     if dev.type == "cuda":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.cuda.set_device(cuda_index(e, rank, torch.cuda.device_count()))
     dist.init_process_group(
         backend="nccl" if dev.type == "cuda" else "gloo",
         init_method=f"tcp://{e['JAX_COORDINATOR_ADDRESS']}",
@@ -91,7 +123,10 @@ def make_mesh(config: MeshConfig, device: Device = None) -> DeviceMesh:
 
     A one-process mesh is built without a process group (a plain
     ``init_device_mesh`` would start one from ``env://`` and need
-    ``MASTER_ADDR``)."""
+    ``MASTER_ADDR``), through ``DeviceMesh``'s private ``_init_backend``
+    and ``_rank`` arguments; ``tests/test_torch_mesh.py`` fails if torch
+    changes them. Such a mesh carries shapes and coordinates only: the
+    sharded model treats it as inactive (``sharding.is_active``)."""
     device_type = resolve_device(device).type
     n = world_size()
     if config.total() != n:

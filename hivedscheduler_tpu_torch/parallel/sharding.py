@@ -1,0 +1,416 @@
+"""Logical-axis sharding rules and the collectives of the sharded step.
+
+Counterpart of ``hivedscheduler_tpu/parallel/sharding.py``. The rule table
+is the JAX package's: every tensor dimension has a logical name
+(``transformer.logical_axes``), and ``DEFAULT_RULES`` maps each name to the
+mesh axis it shards over. A parameter is a ``DTensor`` on the (dp, fsdp,
+tp) sub-mesh of the port's 6-axis mesh (``parallel/mesh.py``,
+:func:`param_mesh`) with the placements the table gives
+(:func:`placements_for`): its storage is this rank's shard, and
+``torch.distributed.checkpoint`` reshards it between layouts.
+
+JAX leaves the collectives to GSPMD; here they are written out, each an
+autograd function over one mesh axis, and the model runs on each rank's
+local tensors (``DTensor.to_local``):
+
+- ZeRO-3 over ``fsdp``: :func:`gather_param` casts a shard to the compute
+  dtype and all-gathers it over fsdp where the block uses it, one layer at
+  a time (inside the layer's checkpoint, so backward gathers it again); its
+  backward reduce-scatters the f32 gradient. ``dp`` replicates and
+  :func:`reduce_gradients` all-reduces over it after backward.
+- Megatron tensor parallelism over ``tp``: :func:`copy_to_tp` before a
+  column-parallel product (identity forward, all-reduce of the gradient),
+  :func:`reduce_from_tp` after a row-parallel one (all-reduce forward,
+  identity backward).
+- :func:`sharded_mha` runs the flash kernels on the rank's (batch, heads)
+  block, the counterpart of the JAX ``shard_map``.
+
+A mesh is *active* when a process group exists (:func:`is_active`): then
+the model runs this sharded code. A collective over an axis of one rank is
+the identity and is skipped, as GSPMD emits none, so a one-rank mesh runs
+the sharded code with no communication. Without a group (``mesh=None`` or
+the one-process mesh of ``make_mesh``) the model keeps its unsharded path.
+Sequence, pipeline and expert parallelism (sp, pp, ep > 1) are later
+slices of the port and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+
+from ..ops import attention
+
+# logical dim name -> mesh axis (or None = replicate); the JAX package's
+# table. Batch over (dp, fsdp), sequence over sp, Megatron tp over
+# heads/mlp/vocab, the parameters' embed dim over fsdp (ZeRO-3), experts
+# over ep, the stacked-layer dim over pp (size 1 without pipelining).
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("dp", "fsdp"),
+    "seq": "sp",
+    "embed": "fsdp",
+    "act_embed": None,
+    "heads": "tp",
+    "kv_heads": "tp",
+    "head_dim": None,
+    "mlp": "tp",
+    "vocab": "tp",
+    "expert": "ep",
+    "layers": "pp",
+}
+
+# The batch's axes: a gradient sums over them, the loss averages.
+BATCH_AXES = ("dp", "fsdp")
+
+
+def _sizes(mesh: Any) -> Dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axes_size(axis: Any, mesh: Any) -> int:
+    """Total rank count over a mesh-axis spec (None, a name, or a tuple of
+    names, the shapes the rules produce). ``mesh`` is a ``DeviceMesh`` or
+    anything with its ``mesh_dim_names`` and ``shape``."""
+    if axis is None or mesh is None:
+        return 1
+    sizes = _sizes(mesh)
+    n = 1
+    for a in axis if isinstance(axis, tuple) else (axis,):
+        n *= sizes.get(a, 1)
+    return n
+
+
+def spec_for(
+    logical_axes: Sequence[Optional[str]], rules: Optional[Dict[str, Any]] = None
+) -> Tuple[Any, ...]:
+    """The mesh axes of each tensor dim (the JAX ``PartitionSpec``'s
+    entries) for one tensor's logical axis names."""
+    table = DEFAULT_RULES if rules is None else rules
+    return tuple(table.get(name) if name else None for name in logical_axes)
+
+
+def placements_for(
+    logical_axes: Sequence[Optional[str]], mesh: Any, rules: Optional[Dict[str, Any]] = None
+) -> Tuple[Placement, ...]:
+    """DTensor placements, one per mesh dim: ``Shard(d)`` on each mesh axis
+    that tensor dim ``d`` maps to, ``Replicate()`` elsewhere."""
+    by_axis: Dict[str, Placement] = {}
+    for d, axes in enumerate(spec_for(logical_axes, rules)):
+        for a in () if axes is None else axes if isinstance(axes, tuple) else (axes,):
+            if a in by_axis:
+                raise ValueError(f"mesh axis {a!r} shards two dims of {tuple(logical_axes)}")
+            by_axis[a] = Shard(d)
+    return tuple(by_axis.get(a, Replicate()) for a in mesh.mesh_dim_names)
+
+
+def tree_shardings(
+    mesh: Any, logical_tree: Any, rules: Optional[Dict[str, Any]] = None
+) -> Any:
+    """A placements tree from a tree of logical-axis tuples (the tree
+    mirrors the parameter tree; its leaves are tuples of names)."""
+    if isinstance(logical_tree, dict):
+        return {k: tree_shardings(mesh, v, rules) for k, v in logical_tree.items()}
+    return placements_for(logical_tree, mesh, rules)
+
+
+def is_active(mesh: Any) -> bool:
+    """True when ``mesh`` runs collectives: a mesh built under a process
+    group. ``None`` and the one-process mesh (no group) are inactive."""
+    return mesh is not None and dist.is_initialized()
+
+
+def check_supported(mesh: Any) -> None:
+    """Raise for the axes whose parallelism is a later slice of the port."""
+    later = {"sp": "queue 1 item 9 (sequence parallelism)",
+             "pp": "queue 1 item 10 (pipeline parallelism)",
+             "ep": "queue 1 item 12 (expert parallelism)"}
+    for axis, item in later.items():
+        if axes_size(axis, mesh) > 1:
+            raise NotImplementedError(f"{axis} > 1 needs ROADMAP {item}")
+
+
+# The mesh axes a parameter's placements name. sp, pp and ep are 1 on every
+# mesh the port runs (``check_supported``); DTensor's sharding propagation
+# also grows steeply with the mesh's rank (AdamW's first step on a 6-D mesh
+# took minutes on the CPU, on this 3-D one a fraction of a second).
+PARAM_AXES = ("dp", "fsdp", "tp")
+
+
+def param_mesh(mesh: Any) -> Any:
+    """The sub-mesh over ``PARAM_AXES`` that parameters are placed on."""
+    check_supported(mesh)
+    return mesh[PARAM_AXES]
+
+
+def batch_rank(mesh: Any) -> int:
+    """This rank's index among the batch's shards, row-major over (dp, fsdp)."""
+    i = 0
+    for a in BATCH_AXES:
+        i = i * axes_size(a, mesh) + mesh.get_local_rank(a)
+    return i
+
+
+def local_shard(full: torch.Tensor, placements: Sequence[Placement], mesh: Any) -> torch.Tensor:
+    """This rank's block of ``full`` under ``placements`` (a copy). Every
+    sharded dim must divide evenly: the gathers assume equal shards."""
+    out = full
+    for axis, p in zip(mesh.mesh_dim_names, placements):
+        if isinstance(p, Shard):
+            n = axes_size(axis, mesh)
+            if out.shape[p.dim] % n:
+                raise ValueError(
+                    f"dim {p.dim} of a {tuple(full.shape)} tensor does not split over {axis}={n}")
+            out = out.chunk(n, dim=p.dim)[mesh.get_local_rank(axis)]
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def distribute(full: torch.Tensor, placements: Sequence[Placement], mesh: Any) -> DTensor:
+    """``full`` (the same on every rank) as a DTensor: each rank keeps its
+    own block, with no communication."""
+    return DTensor.from_local(local_shard(full, placements, mesh), mesh, tuple(placements),
+                              run_check=False, shape=full.shape, stride=full.stride())
+
+
+def to_local(tree: Any) -> Any:
+    """The local tensors of a DTensor tree (differentiable); plain tensors
+    pass through."""
+    if isinstance(tree, dict):
+        return {k: to_local(v) for k, v in tree.items()}
+    return tree.to_local() if isinstance(tree, DTensor) else tree
+
+
+# ------------------------------------------------------------- collectives
+
+
+def _group(mesh: Any, axis: str):
+    return mesh.get_group(axis)
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    return funcol.wait_tensor(t) if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def _all_gather(x: torch.Tensor, dim: int, mesh: Any, axis: str) -> torch.Tensor:
+    return _wait(funcol.all_gather_tensor(x.contiguous(), dim, _group(mesh, axis)))
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, mesh: Any, axis: str) -> torch.Tensor:
+    return _wait(funcol.reduce_scatter_tensor(x.contiguous(), "sum", dim, _group(mesh, axis)))
+
+
+def _all_reduce(x: torch.Tensor, mesh: Any, axis: str, op: str = "sum") -> torch.Tensor:
+    return _wait(funcol.all_reduce(x.contiguous(), op, _group(mesh, axis)))
+
+
+class _Gather(torch.autograd.Function):
+    """Cast a shard to ``dtype`` and all-gather it over ``axis`` along
+    ``dim``; backward reduce-scatters the gradient in the shard's dtype (a
+    parameter's f32 master: an f32 reduction, FSDP2's reduce_dtype)."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, dtype, mesh, axis):
+        ctx.dim, ctx.mesh, ctx.axis, ctx.dtype = dim, mesh, axis, shard.dtype
+        return _all_gather(shard.to(dtype), dim, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad.to(ctx.dtype), ctx.dim, ctx.mesh, ctx.axis), None, None, None, None
+
+
+class _ReduceForward(torch.autograd.Function):
+    """Megatron's g: all-reduce (sum) over ``axis``, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _ReduceBackward(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mesh, ctx.axis), None, None
+
+
+def gather_param(shard: torch.Tensor, dim: Optional[int], dtype: torch.dtype, mesh: Any) -> torch.Tensor:
+    """The whole-over-fsdp parameter in ``dtype`` from this rank's shard;
+    ``dim`` is the dim sharded over fsdp (None: not sharded there, only
+    cast). tp shards stay local."""
+    if dim is None or axes_size("fsdp", mesh) == 1:
+        return shard.to(dtype)
+    return _Gather.apply(shard, dim, dtype, mesh, "fsdp")
+
+
+def gather_tp(x: torch.Tensor, dim: int, mesh: Any) -> torch.Tensor:
+    """All-gather over tp along ``dim``; backward reduce-scatters."""
+    return x if axes_size("tp", mesh) == 1 else _Gather.apply(x, dim, x.dtype, mesh, "tp")
+
+
+def copy_to_tp(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    return x if axes_size("tp", mesh) == 1 else _ReduceBackward.apply(x, mesh, "tp")
+
+
+def reduce_from_tp(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    return x if axes_size("tp", mesh) == 1 else _ReduceForward.apply(x, mesh, "tp")
+
+
+def fsdp_dim(logical: Sequence[Optional[str]], rules: Optional[Dict[str, Any]] = None) -> Optional[int]:
+    """The tensor dim the rules shard over fsdp, or None."""
+    for d, axes in enumerate(spec_for(logical, rules)):
+        if axes == "fsdp" or (isinstance(axes, tuple) and "fsdp" in axes):
+            return d
+    return None
+
+
+def reduce_gradients(leaves: Sequence[DTensor], mesh: Any) -> None:
+    """Finish the gradients after backward: sum each leaf's local gradient
+    over the batch axes it is replicated on (a leaf sharded over fsdp was
+    reduce-scattered there by its gather), then divide by the batch's
+    shard count, so that each is the gradient of the global mean loss."""
+    n = axes_size(BATCH_AXES, mesh)
+    for p in leaves:
+        if p.grad is None:
+            continue
+        g = p.grad.to_local()
+        for axis, placement in zip(p.device_mesh.mesh_dim_names, p.placements):
+            if axis in BATCH_AXES and not isinstance(placement, Shard) and axes_size(axis, mesh) > 1:
+                dist.all_reduce(g, group=_group(mesh, axis))
+        if n > 1:
+            g.div_(n)
+
+
+def mean_over_batch(loss: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """The global mean of a per-rank mean loss (equal rows on every rank)."""
+    total = loss.detach()
+    for axis in BATCH_AXES:
+        if axes_size(axis, mesh) > 1:
+            total = _all_reduce(total, mesh, axis)
+    n = axes_size(BATCH_AXES, mesh)
+    return total / n if n > 1 else total
+
+
+# --------------------------------------------------------------- the model
+
+
+def embed_lookup(
+    table: torch.Tensor, tokens: torch.Tensor, mesh: Any, dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """Embedding lookup of this rank's ``tokens`` [B, S]. Without an active
+    mesh, ``table[tokens]`` (``table`` whole, cast to ``dtype``); on one,
+    :func:`vocab_parallel_embed` on the rank's shard of the table. The JAX
+    package falls back to the plain gather where the shapes do not divide;
+    here no such shape arises, since ``distribute`` refuses a table and
+    ``shard_batch`` a batch that does not divide."""
+    if not is_active(mesh):
+        return (table if dtype is None else table.to(dtype))[tokens]
+    return vocab_parallel_embed(table, tokens, mesh, dtype)
+
+
+def vocab_parallel_embed(
+    table: torch.Tensor,  # [V/tp, D/fsdp]: this rank's shard (vocab->tp, embed->fsdp)
+    tokens: torch.Tensor,  # [B, S] this rank's rows
+    mesh: Any,
+    dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Megatron's vocab-parallel lookup. The embed dim is gathered over
+    fsdp first (the batch shards over fsdp too, so after the lookup the
+    fsdp peers hold different tokens' rows), then each tp rank looks up
+    only the rows it owns, the others masked to zero, and an all-reduce
+    over tp combines them."""
+    table = gather_param(table, 1, table.dtype if dtype is None else dtype, mesh)
+    vshard = table.shape[0]
+    local = tokens - mesh.get_local_rank("tp") * vshard
+    ok = (local >= 0) & (local < vshard)
+    out = table[local.clamp(0, vshard - 1)]
+    out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return reduce_from_tp(out, mesh)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """Mean negative log-likelihood of ``targets`` [N] under tp-sharded
+    logits [N, V/tp] (f32): the log-softmax's max and sum and the target's
+    logit each combine over tp, so no rank holds [N, V]."""
+    vshard = logits.shape[-1]
+    m = _all_reduce(logits.detach().amax(dim=-1), mesh, "tp", "max")
+    s = reduce_from_tp(torch.exp(logits - m[:, None]).sum(dim=-1), mesh)
+    local = targets - mesh.get_local_rank("tp") * vshard
+    ok = (local >= 0) & (local < vshard)
+    picked = logits.gather(1, local.clamp(0, vshard - 1)[:, None])[:, 0]
+    tl = reduce_from_tp(torch.where(ok, picked, torch.zeros((), device=picked.device)), mesh)
+    return torch.mean(m + torch.log(s) - tl)
+
+
+def mha_shardable(
+    batch: int, n_heads: int, n_kv_heads: int, mesh: Any, rules: Optional[Dict[str, Any]] = None
+) -> bool:
+    """The JAX package's gate for attention on local blocks (global sizes):
+    batch divides dp x fsdp, heads and kv_heads divide tp, both shard over
+    the same count (each rank keeps whole GQA groups), and no sp."""
+    table = DEFAULT_RULES if rules is None else rules
+
+    def size(name):
+        return axes_size(table.get(name), mesh)
+
+    return (batch % size("batch") == 0 and n_heads % size("heads") == 0
+            and n_kv_heads % size("kv_heads") == 0 and size("heads") == size("kv_heads")
+            and size("seq") == 1)
+
+
+def sharded_mha(
+    q: torch.Tensor,  # [B, S, H*D / tp]: this rank's columns of the q projection
+    k: torch.Tensor,  # [B, S, Hkv*D / tp]
+    v: torch.Tensor,
+    mesh: Any,
+    n_heads: int,
+    n_kv_heads: int,
+    rotary: Callable[[torch.Tensor], torch.Tensor] = lambda t: t,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Attention of this rank's rows and heads; returns its columns of the
+    [B, S, H*D] output, the row-parallel output projection's input.
+
+    Where :func:`mha_shardable` holds, each rank's columns are whole heads:
+    ``rotary`` (RoPE) and ``attention.mha`` (the flash kernels) run on the
+    local (batch, heads) block. Otherwise (the JAX package falls back to
+    its reference there) the columns are gathered over tp, every head goes
+    through ``attention.mha``, so the kernels still run, and the rank keeps
+    its own columns, as ``generate._block_cached`` does. Without an active
+    mesh, all heads are local."""
+    b, s, width = q.shape
+    tp = axes_size("tp", mesh) if is_active(mesh) else 1
+    d = width * tp // n_heads
+    local = tp == 1 or mha_shardable(b * axes_size(BATCH_AXES, mesh), n_heads, n_kv_heads, mesh)
+    if not local:
+        q, k, v = (gather_tp(y, 2, mesh) for y in (q, k, v))
+    qh = rotary(q.reshape(b, s, -1, d))
+    kh = rotary(k.reshape(b, s, -1, d))
+    out = attention.mha(qh, kh, v.reshape(b, s, -1, d), causal).reshape(b, s, -1)
+    return out if local else out.narrow(2, mesh.get_local_rank("tp") * width, width)
+
+
+def shard_batch(batch: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """This rank's block of a host batch with (batch, seq, ...) layout: its
+    rows over (dp, fsdp) and its columns over sp. Every rank passes the same
+    global batch. Raises where a dim does not divide."""
+    blocks = ((BATCH_AXES, batch_rank(mesh)), (("sp",), mesh.get_local_rank("sp")))
+    for dim, (axes, i) in enumerate(blocks[: batch.dim()]):
+        n = axes_size(axes, mesh)
+        if batch.shape[dim] % n:
+            raise ValueError(f"batch dim {dim} of {batch.shape[dim]} does not split over {axes}={n}")
+        width = batch.shape[dim] // n
+        batch = batch.narrow(dim, i * width, width)
+    return batch.contiguous()

@@ -1,8 +1,8 @@
-"""Serve a Llama-style model on one device: weights from a training
-checkpoint or random from a seed, synthetic prompts, flash-kernel prefill
-and KV-cache decode.
+"""Serve a Llama-style model: weights from a training checkpoint or random
+from a seed, synthetic prompts, flash-kernel prefill and KV-cache decode;
+on one device, or sharded over the processes of a gang.
 
-Single-device counterpart of ``example/workloads/serve_llama.py``::
+Counterpart of ``example/workloads/serve_llama.py``::
 
     python -m hivedscheduler_tpu_torch.serve --model llama3_8b \\
         --batch 4 --prompt-len 2048 --new-tokens 32 --temperature 0
@@ -15,9 +15,14 @@ The job boots from the scheduler's env block (``HIVED_TPU_ENV``). With
 optimizer state is never read), in the compute dtype; ``--layers`` cuts the
 depth as ``train.py`` does, so a depth-cut trainer's checkpoint can be
 served. Each request prints its time to first token (prefill + first
-sample), its decode rate, and how many times the flash kernel launched. A
-world of more than one process raises: the sharded serving mesh is a later
-slice of the port.
+sample), its decode rate, and how many times the flash kernel launched.
+
+A gang of more than one process lays itself out as ``serve_llama.py``
+does: tp 4 when the world divides by 4, else 2 when by 2, the rest fsdp;
+the batch snaps to a multiple of dp x fsdp. The weights are placed by the
+rule table, each rank serves its rows of every request (the ranks of a tp
+group the same rows, sampling alike) and prints its own first row. int8
+linears on a mesh are not ported.
 """
 
 from __future__ import annotations
@@ -29,21 +34,30 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import empty as dtensor_empty
 
 from . import Device, resolve_device
 from .models import checkpoint, generate, quantize, transformer
 from .ops import attention
-from .parallel.mesh import world_size
-from .workloads.common import bootstrap_distributed, synthetic_tokens  # noqa: F401 (re-exported)
+from .parallel import sharding
+from .parallel.mesh import infer_mesh_config, make_mesh, world_size
+from .workloads.common import (  # noqa: F401 (synthetic_tokens re-exported)
+    bootstrap_distributed, lift_env_block, synthetic_tokens,
+)
 
 MODELS = {"tiny": transformer.tiny, "llama3_8b": transformer.llama3_8b}
 
 
-def _empty(tree: Any, dtype: torch.dtype, device: torch.device) -> Any:
+def _empty(tree: Any, dtype: torch.dtype, device: torch.device, placements: Any = None,
+           mesh: Any = None) -> Any:
     """Uninitialised tensors in ``dtype`` on ``device``, shaped like
-    ``tree``'s leaves."""
+    ``tree``'s leaves; DTensors on ``mesh`` where ``placements`` (a tree
+    like ``tree``) are given."""
     if isinstance(tree, dict):
-        return {k: _empty(v, dtype, device) for k, v in tree.items()}
+        return {k: _empty(v, dtype, device, None if placements is None else placements[k], mesh)
+                for k, v in tree.items()}
+    if placements is not None:
+        return dtensor_empty(tree.shape, dtype=dtype, device_mesh=mesh, placements=placements)
     return torch.empty(tree.shape, dtype=dtype, device=device)
 
 
@@ -54,22 +68,36 @@ def build(
     int8: bool = False,
     layers: Optional[int] = None,
     ckpt: Optional[str] = None,
+    mesh: Any = None,
 ) -> Tuple[transformer.TransformerConfig, transformer.Params]:
     """The model's config (depth cut to ``layers``) and its parameters in
     the compute dtype: restored from the latest step under ``ckpt``, else
-    drawn from ``seed``; int8-quantized linears when ``int8``."""
+    drawn from ``seed``; int8-quantized linears when ``int8``. On an active
+    ``mesh``, DTensors placed by the rule table (each rank reads or keeps
+    its own shards)."""
     device = resolve_device(device)
     config = MODELS[model]()
     config = dataclasses.replace(config, n_layers=layers or config.n_layers)
+    active = sharding.is_active(mesh)
+    if int8 and active:
+        raise NotImplementedError("int8 linears on a mesh are not ported; serve them on one process")
     if ckpt:
         # Shapes from an init on the meta device: nothing is drawn.
         shapes = transformer.init(config, torch.Generator(), "meta")
-        like = _empty(shapes, config.dtype, device)
+        placements = None
+        if active:
+            placements = sharding.tree_shardings(sharding.param_mesh(mesh),
+                                                 transformer.logical_axes(config))
+        like = _empty(shapes, config.dtype, device, placements,
+                      sharding.param_mesh(mesh) if active else None)
         params, step = checkpoint.TrainCheckpointer(ckpt).restore_params(like)
         print(f"restored checkpoint step {step} from {ckpt}", flush=True)
     else:
         gen = torch.Generator(device=device).manual_seed(seed)
-        params = transformer.init(config, gen, device)
+        if active:
+            params = transformer.init_distributed(config, mesh, gen, device)
+        else:
+            params = transformer.init(config, gen, device)
     if int8:
         params = quantize.quantize_params(params)
     return config, params
@@ -88,16 +116,18 @@ def run_request(
     temperature: float = 0.0,
     top_p: float = 1.0,
     generator: Optional[torch.Generator] = None,
+    mesh: Any = None,
 ) -> Dict[str, object]:
     """Generate ``new_tokens`` after ``prompt`` and time it: TTFT is the
     prefill plus the first sample, the decode rate counts the tokens after
-    the first over the time after it. Host clock around device syncs."""
+    the first over the time after it. Host clock around device syncs. On an
+    active ``mesh``, ``prompt`` is this rank's rows."""
     device = prompt.device
     launches0 = attention.flash_attention.launches
     _sync(device)
     t0 = time.perf_counter()
     stream = generate.generate_stream(
-        params, prompt, config, new_tokens, temperature, generator, top_p=top_p
+        params, prompt, config, new_tokens, temperature, generator, top_p=top_p, mesh=mesh
     )
     tokens = [next(stream)]
     _sync(device)
@@ -137,33 +167,40 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
                         help="default cuda; 'cpu' runs the plain versions")
     args = parser.parse_args(argv)
 
+    lift_env_block()  # the card grant, before anything initialises CUDA
     device = resolve_device(args.device)
     bootstrap_distributed(device)
-    # One process: serve_llama.py's snap of the batch to a multiple of
-    # dp x fsdp is the identity here and comes with the sharded mesh.
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"serving across {world_size()} processes needs the sharded serving "
-            "mesh (ROADMAP queue 1 item 8); this slice serves one process"
-        )
-    config, params = build(args.model, args.seed, device, args.int8, args.layers, args.ckpt)
+    n = world_size()
+    mesh, batch, batch_rank = None, args.batch, 0
+    if n > 1:
+        layout = infer_mesh_config(n, tp=4 if n % 4 == 0 else (2 if n % 2 == 0 else 1))
+        mesh = make_mesh(layout, device)
+        # serve_llama.py's snap: at least one row a (dp, fsdp) shard.
+        per = layout.dp * layout.fsdp
+        batch = max(args.batch // per, 1) * per
+        if batch != args.batch:
+            print(f"batch {args.batch} -> {batch} (multiple of dp*fsdp={per})", flush=True)
+        batch_rank = sharding.batch_rank(mesh)
+    config, params = build(args.model, args.seed, device, args.int8, args.layers, args.ckpt, mesh)
     rng = np.random.default_rng(args.seed + 1)
-    gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    # One stream a batch shard: the ranks of a tp group sample alike.
+    gen = torch.Generator(device=device).manual_seed(args.seed + 2 + batch_rank)
     results = []
     for r in range(args.requests):
         prompt = torch.from_numpy(
-            synthetic_tokens(rng, args.batch, args.prompt_len, config.vocab_size)
-        ).to(device)
+            synthetic_tokens(rng, batch, args.prompt_len, config.vocab_size))
+        if mesh is not None:
+            prompt = sharding.shard_batch(prompt, mesh)
         res = run_request(
-            params, prompt, config, args.new_tokens, args.temperature,
-            args.top_p, gen,
+            params, prompt.to(device), config, args.new_tokens, args.temperature,
+            args.top_p, gen, mesh,
         )
         results.append(res)
         rate = res["decode_tok_s"]
         print(
             f"request {r}: ttft {res['ttft_ms']:.1f} ms, decode "
             f"{'n/a' if rate is None else f'{rate:.1f}'} tok/s, "
-            f"flash launches {res['flash_launches']}, first ids "
+            f"flash launches {res['flash_launches']}, first {'local ' if mesh else ''}ids "
             f"{res['tokens'][0, :4].tolist()}",
             flush=True,
         )

@@ -1,2 +1,3 @@
-"""Measurement tools run on the card (counterparts of the JAX package's
-``hack/`` scripts)."""
+"""Measurement tools (counterparts of the JAX package's ``hack/`` scripts)
+and the multi-process dryrun of the sharded step (``__graft_entry__.py``'s
+twin)."""

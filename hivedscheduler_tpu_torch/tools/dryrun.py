@@ -1,0 +1,173 @@
+"""Multi-process dryrun of the sharded training step: the port's twin of
+``__graft_entry__.py``'s ``dryrun_multichip``.
+
+    python -m hivedscheduler_tpu_torch.tools.dryrun 4 [--rows fsdp_tp,dp] [--device cpu]
+
+Spawns an n-process gang (gloo on the CPU, NCCL on CUDA, one card a rank),
+and each row of layouts takes one sharded train step of the ``tiny`` model
+from seed 0 on all-zero tokens, at least 4 rows of 256 rounded up to a
+multiple of dp x fsdp (identical rows keep the mean loss comparable across
+batch sizes). Each row's loss must lie within ``TOL`` of the one-process
+step on 4 rows; a row that diverges raises. Rows:
+
+- ``fsdp_tp``: tp 2 when n is even, the rest fsdp (sp 1);
+- ``fsdp``: fsdp n;
+- ``dp``: dp 2, fsdp n / 2 (n even).
+
+The JAX dryrun's sequence, pipeline and expert rows (``ulysses-sp``,
+``pp``, ``pp-x-sp``, ``ep-moe``) are ROADMAP queue 1 items 9, 10 and 12.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import subprocess
+import sys
+from typing import Dict, List, Optional, Sequence
+
+TOL = 5e-3
+SEQ = 256
+ROWS = ("fsdp_tp", "fsdp", "dp")
+LATER_ROWS = {"sp": 9, "ulysses-sp": 9, "pp": 10, "pp-x-sp": 10, "ep-moe": 12}
+
+
+def layouts(n: int, rows: Sequence[str] = ROWS) -> Dict[str, Dict[str, int]]:
+    """Each asked-for row's mesh sizes for an n-process gang; rows that do
+    not fit n are left out."""
+    for row in rows:
+        if row in LATER_ROWS:
+            raise NotImplementedError(
+                f"dryrun row {row!r} needs ROADMAP queue 1 item {LATER_ROWS[row]}")
+        if row not in ROWS:
+            raise ValueError(f"unknown dryrun row {row!r}; one of {ROWS}")
+    tp = 2 if n % 2 == 0 else 1
+    table = {"fsdp_tp": dict(fsdp=n // tp, tp=tp), "fsdp": dict(fsdp=n)}
+    if n % 2 == 0:
+        table["dp"] = dict(dp=2, fsdp=n // 2)
+    return {r: table[r] for r in rows if r in table}
+
+
+def _tokens(rows: int):
+    import torch
+
+    return torch.zeros((rows, SEQ), dtype=torch.long)
+
+
+def _params(device: str, mesh=None):
+    import torch
+
+    from ..models import train, transformer
+
+    config = transformer.tiny()
+    gen = torch.Generator(device=device).manual_seed(0)
+    if mesh is None:
+        params = transformer.init(config, gen, device, torch.float32)
+        return config, params, train.make_optimizer(params)
+    params, optimizer = train.init_sharded(config, mesh, gen, device)
+    return config, params, optimizer
+
+
+def reference_loss(device: str = "cpu") -> float:
+    """The one-process step's loss on 4 zero rows."""
+    from ..models import train
+
+    config, params, optimizer = _params(device)
+    return float(train.train_step(params, optimizer, _tokens(4), config, device))
+
+
+def _worker(rank: int, world: int, port: int, device: str, rows: Sequence[str]) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from ..models import train
+    from ..parallel import mesh as pmesh
+    from ..parallel import sharding
+
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    else:  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    losses = {}
+    try:
+        for row, sizes in layouts(world, rows).items():
+            mesh = pmesh.make_mesh(pmesh.MeshConfig(**sizes), device)
+            config, params, optimizer = _params(device, mesh)
+            dpf = sizes.get("dp", 1) * sizes.get("fsdp", 1)
+            tokens = sharding.shard_batch(_tokens(-(-4 // dpf) * dpf), mesh)
+            step = train.make_train_step(config, mesh, optimizer)
+            losses[row] = float(step(params, tokens))
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "losses": losses}), flush=True)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dryrun(n: int, rows: Sequence[str] = ROWS, device: str = "cpu",
+           timeout: float = 600) -> Dict[str, object]:
+    """Run the rows on an n-process gang and hold each rank's loss to the
+    one-process step's; returns {"reference": loss, "rows": {row: loss}}.
+    Every process it starts is ended before it returns."""
+    wanted = layouts(n, rows)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hivedscheduler_tpu_torch.tools.dryrun", str(n),
+         "--worker", str(r), str(port), "--device", device, "--rows", ",".join(wanted)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root, env=env)
+        for r in range(n)]
+    outs: List[dict] = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise RuntimeError(f"dryrun rank exited {p.returncode}: {err[-2000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ref = reference_loss(device)
+    bad = [f"{row} rank {o['rank']}: loss={o['losses'][row]:.6f}"
+           for o in outs for row in wanted if abs(o["losses"][row] - ref) > TOL]
+    if bad:
+        raise RuntimeError(f"dryrun: sharded loss diverged from the one-process step "
+                           f"{ref:.6f} (tol {TOL}): " + "; ".join(bad))
+    losses = {row: outs[0]["losses"][row] for row in wanted}
+    print(f"dryrun: {n} processes on {device}, one-process loss={ref:.4f}, all rows within "
+          f"{TOL}: " + ", ".join(f"{row} {wanted[row]} loss={v:.4f}" for row, v in losses.items()),
+          flush=True)
+    return {"reference": ref, "rows": losses}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("n", type=int, help="processes in the gang")
+    parser.add_argument("--rows", default=",".join(ROWS),
+                        help=f"comma list of {ROWS}; later items' rows raise")
+    parser.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    parser.add_argument("--worker", nargs=2, type=int, metavar=("RANK", "PORT"),
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    rows = [r for r in args.rows.split(",") if r]
+    if args.worker:
+        rank, port = args.worker
+        _worker(rank, args.n, port, args.device, rows)
+        return {}
+    return dryrun(args.n, rows, args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,9 @@
-"""Train a Llama-style model on one device: random f32 master weights from
-a seed, batches from a token file or one fixed synthetic batch, AdamW,
-bf16 compute with the flash kernels in forward and backward.
+"""Train a Llama-style model: random f32 master weights from a seed,
+batches from a token file or one fixed synthetic batch, AdamW, bf16
+compute with the flash kernels in forward and backward; on one device, or
+sharded over the processes of a gang.
 
-Single-card counterpart of ``example/workloads/train_llama.py`` (one rank
-of that job, at its per-device batch)::
+Counterpart of ``example/workloads/train_llama.py``::
 
     python -m hivedscheduler_tpu_torch.train --model llama3_8b --layers 8 \\
         --batch 1 --seq 8192 --steps 6 --remat-policy flash
@@ -21,8 +21,16 @@ loss, its time (host clock around a device sync), tokens/s, on CUDA the
 share of the H100's dense bf16 peak that the model FLOPs
 (``models/perf.flops_per_token``) reach, and each kernel's launches.
 ``--device cpu`` runs the plain versions; ``--layers`` cuts the depth and
-nothing else. A world of more than one process raises: the sharded
-(FSDP/TP) step is a later slice of the port.
+nothing else.
+
+A gang of more than one process lays itself out as ``train_llama.py``
+does: tp 4 when the world divides by 4, sp 1, the rest fsdp
+(``parallel/mesh.infer_mesh_config``). The parameters and AdamW's state are
+placed by the rule table (``models/train.init_sharded``: ZeRO-3 over fsdp,
+tensor parallelism over tp), ``--batch`` rows go to each rank of the
+batch's (dp, fsdp) shards, and each rank reads its own rows of every
+global batch; the loss printed is the global batch's. One process keeps
+the unsharded step.
 """
 
 from __future__ import annotations
@@ -31,18 +39,20 @@ import argparse
 import dataclasses
 import itertools
 import time
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import Device, resolve_device
 from .models import perf, train, transformer
 from .ops.attention import kernel_launches
-from .parallel.mesh import world_size
+from .parallel import sharding
+from .parallel.mesh import infer_mesh_config, make_mesh, world_size
 from .serve import MODELS
 from .utils.data import TokenFileDataset, prefetch_to_device, sharded_batches
-from .workloads.common import bootstrap_distributed, synthetic_tokens
+from .workloads.common import bootstrap_distributed, lift_env_block, synthetic_tokens
 
 # Token ids above this need a uint32 token file (Llama-3's vocab is 128,256).
 UINT16_VOCAB = 65536
@@ -54,16 +64,20 @@ def build(
     device: Device = None,
     layers: Optional[int] = None,
     remat_policy: str = "flash",
+    mesh: Any = None,
 ) -> Tuple[transformer.TransformerConfig, transformer.Params]:
     """The model's config (depth cut to ``layers``, every block
     checkpointed under ``remat_policy``) and f32 master parameters drawn on
-    the device from ``seed``."""
+    the device from ``seed``: on an active ``mesh``, the same values as
+    DTensors placed by the rule table."""
     device = resolve_device(device)
     config = MODELS[model]()
     config = dataclasses.replace(
         config, n_layers=layers or config.n_layers, remat=True, remat_policy=remat_policy
     )
     gen = torch.Generator(device=device).manual_seed(seed)
+    if sharding.is_active(mesh):
+        return config, transformer.init_distributed(config, mesh, gen, device, torch.float32)
     return config, transformer.init(config, gen, device, dtype=torch.float32)
 
 
@@ -78,11 +92,14 @@ def run(
     tokens: Union[torch.Tensor, Iterable[torch.Tensor]],
     steps: int,
     optimizer: Optional[torch.optim.Optimizer] = None,
+    mesh: Any = None,
 ) -> Iterator[Dict[str, object]]:
     """Take ``steps`` AdamW steps (a new ``make_optimizer`` unless one is
     given), each on the next of ``tokens``' batches, or on ``tokens`` itself
     when it is one [B, S] tensor; yield one record a step: loss, step_ms,
-    tokens_per_s, peak_share (CUDA only) and launches."""
+    tokens_per_s, peak_share (CUDA only) and launches. On an active
+    ``mesh`` the batches are this rank's rows, tokens/s and the peak share
+    this rank's, and the loss the global batch's."""
     batches = itertools.repeat(tokens) if isinstance(tokens, torch.Tensor) else iter(tokens)
     optimizer = optimizer or train.make_optimizer(params)
     n_param = perf.n_params(params)
@@ -93,7 +110,7 @@ def run(
         before = kernel_launches()
         _sync(device)
         t0 = time.perf_counter()
-        loss = float(train.train_step(params, optimizer, batch, config, device))
+        loss = float(train.train_step(params, optimizer, batch, config, device, mesh))
         _sync(device)
         seconds = time.perf_counter() - t0
         after = kernel_launches()
@@ -154,33 +171,39 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
                         help="default cuda; 'cpu' runs the plain versions")
     args = parser.parse_args(argv)
 
+    lift_env_block()  # the card grant, before anything initialises CUDA
     device = resolve_device(args.device)
     bootstrap_distributed(device)
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"training across {world_size()} processes needs the sharded FSDP/TP "
-            "step (ROADMAP queue 1 item 8); this slice trains one process"
-        )
-    config, params = build(args.model, args.seed, device, args.layers, args.remat_policy)
+    n = world_size()
+    mesh, per = None, 1
+    if n > 1:
+        layout = infer_mesh_config(n, tp=4 if n % 4 == 0 else 1, sp=1)
+        mesh = make_mesh(layout, device)
+        per = layout.dp * layout.fsdp
+    config, params = build(args.model, args.seed, device, args.layers, args.remat_policy, mesh)
     seq = args.seq or config.max_seq_len
+    gang = ("" if mesh is None else
+            f", rank {dist.get_rank()} of mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     print(f"{args.model}: {config.n_layers} layers, {perf.n_params(params):,} parameters, "
-          f"batch {args.batch} x {seq} on {device}", flush=True)
+          f"batch {args.batch} x {seq} on {device}{gang}", flush=True)
     stream = None
     if args.data:
         dataset = TokenFileDataset(args.data, seq - 1,
                                    dtype=token_dtype(config.vocab_size, args.data_dtype))
-        # One process: the whole batch (no mesh) until the sharded step.
-        stream = prefetch_to_device(sharded_batches(dataset, args.batch, seed=1), device)
+        stream = prefetch_to_device(
+            sharded_batches(dataset, args.batch * per, mesh, seed=1), device)
         batches: Union[torch.Tensor, Iterator[torch.Tensor]] = stream
     else:
         rng = np.random.default_rng(args.seed + 1)
         batches = torch.from_numpy(
-            synthetic_tokens(rng, args.batch, seq, config.vocab_size)
-        ).to(device)
+            synthetic_tokens(rng, args.batch * per, seq, config.vocab_size))
+        if mesh is not None:
+            batches = sharding.shard_batch(batches, mesh)
+        batches = batches.to(device)
     optimizer = train.make_optimizer(params)
     records = []
     try:
-        for rec in run(params, config, batches, args.steps, optimizer):
+        for rec in run(params, config, batches, args.steps, optimizer, mesh):
             records.append(rec)
             share = rec["peak_share"]
             print(

@@ -17,7 +17,7 @@ from typing import Dict
 import numpy as np
 
 from .. import Device
-from ..parallel.mesh import initialize_from_env
+from ..parallel.mesh import apply_chip_grant, initialize_from_env
 
 ENV_BLOCK_VAR = "HIVED_TPU_ENV"
 
@@ -38,12 +38,21 @@ def parse_env_block(text: str) -> Dict[str, str]:
     return env
 
 
-def bootstrap_distributed(device: Device = None) -> int:
+def lift_env_block() -> None:
     """Lift ``HIVED_TPU_ENV`` into ``os.environ`` (a variable already set
-    wins), start the process group from it (a no-op for one process) and
-    return this worker's rank (0 for a single-process job)."""
+    wins) and map the pod's card grant into ``CUDA_VISIBLE_DEVICES``
+    (``parallel.mesh.apply_chip_grant``). Touches no CUDA API, so an entry
+    point calls it before it resolves its device."""
     for key, value in parse_env_block(os.environ.get(ENV_BLOCK_VAR, "")).items():
         os.environ.setdefault(key, str(value))
+    apply_chip_grant()
+
+
+def bootstrap_distributed(device: Device = None) -> int:
+    """``lift_env_block``, then start the process group from the
+    environment (a no-op for one process); returns this worker's rank (0
+    for a single-process job)."""
+    lift_env_block()
     initialize_from_env(device=device)
     return int(os.environ.get("JAX_PROCESS_ID", "0"))
 

@@ -176,3 +176,32 @@ def test_cuda_prefetch_copies_on_a_side_stream(cuda_device):
     sums = [(t.long() * 2).sum() for t in prefetch_to_device(iter(batches), cuda_device)]
     torch.cuda.synchronize()
     assert [s.item() for s in sums] == [2 * i * 4 * 8192 for i in range(6)]
+
+
+# Llama-3-8B's attention as one rank of a tp gang holds it at training's
+# B1 S8192: 32/8 heads split over tp = 2, 4 and 8.
+_TP_HEADS = {2: (16, 4), 4: (8, 2), 8: (4, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", sorted(_TP_HEADS))
+def test_cuda_kernels_at_the_per_rank_tp_shapes(cuda_device, tp):
+    h, hkv = _TP_HEADS[tp]
+    gen = torch.Generator(device=cuda_device).manual_seed(tp)
+    q, do = (torch.randn(1, 8192, h, 128, device=cuda_device, dtype=torch.bfloat16,
+                         generator=gen) for _ in range(2))
+    k, v = (torch.randn(1, 8192, hkv, 128, device=cuda_device, dtype=torch.bfloat16,
+                        generator=gen) for _ in range(2))
+    out, lse = TA.flash_attention(q, k, v, True)
+    ref, ref_lse = TA.flash_attention_reference(q, k, v, True)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    del ref, ref_lse
+    delta = TA.flash_bwd_delta(out, do)
+    dk, dv = TA.flash_bwd_dkdv(q, k, v, do, lse, delta, True)
+    dq = TA.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    ref_dk, ref_dv = TA.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, True)
+    ref_dq = TA.flash_bwd_dq_reference(q, k, v, do, lse, delta, True)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale

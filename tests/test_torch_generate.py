@@ -198,6 +198,32 @@ def test_sampled_generate_is_seeded(params):
     assert torch.equal(a[:, :6], tp)
 
 
+def test_flash_prefill_on_a_cache_with_history_raises(params):
+    # chunked=False is prompt-only attention: over a cache with history it
+    # would ignore the history, so it is refused and the cache is untouched.
+    _, tparams = params
+    _, tp = prompt(2, 1, 24)
+    cache = TG.init_cache(TCFG, 1, 24, device="cpu")
+    _, cache = TG.prefill(tparams, tp[:, :12], cache, TCFG, chunked=False)  # fresh: allowed
+    before = cache.k.clone()
+    with pytest.raises(ValueError, match="needs a fresh cache; this one holds 12 positions"):
+        TG.prefill(tparams, tp[:, 12:], cache, TCFG, chunked=False)
+    assert cache.length == 12 and torch.equal(cache.k, before)
+
+
+def test_default_prefill_on_a_cache_with_history_takes_the_cached_program(params, monkeypatch):
+    _, tparams = params
+    _, tp = prompt(2, 1, 24)
+    cache = TG.init_cache(TCFG, 1, 24, device="cpu")
+    _, cache = TG.prefill(tparams, tp[:, :12], cache, TCFG)
+    modes = []
+    block = TG._block_cached
+    monkeypatch.setattr(TG, "_block_cached",
+                        lambda *a, **k: modes.append(a[6]) or block(*a, **k))
+    got, _ = TG.prefill(tparams, tp[:, 12:], cache, TCFG)
+    assert modes == ["cached"] * TCFG.n_layers and got.shape == (1, TCFG.vocab_size)
+
+
 def test_cache_overflow_raises(params):
     _, tparams = params
     _, tp = prompt(9, 1, 8)

@@ -35,8 +35,8 @@ def test_import_pulls_in_no_jax():
     assert "hivedscheduler_tpu_torch.train" in mods
     assert "hivedscheduler_tpu_torch.models.train" in mods
     assert "hivedscheduler_tpu_torch.models.perf" in mods
-    for name in ("parallel.mesh", "utils.data", "workloads.common", "models.checkpoint",
-                 "tools.mfu_sweep"):
+    for name in ("parallel.mesh", "parallel.sharding", "utils.data", "workloads.common",
+                 "models.checkpoint", "tools.mfu_sweep", "tools.dryrun"):
         assert f"hivedscheduler_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -54,7 +54,8 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "tests").glob("_torch_*worker.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_sources_import_no_jax(path):

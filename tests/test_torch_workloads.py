@@ -1,6 +1,7 @@
 """The port's job entry points as the scheduler launches them: the env-block
-bootstrap (hivedscheduler_tpu_torch.workloads.common), ``train.main`` on a
-token file, and ``serve.main`` on a checkpoint, against the JAX package."""
+bootstrap (hivedscheduler_tpu_torch.workloads.common) and the card grant,
+``train.main`` on a token file, ``serve.main`` on a checkpoint, against the
+JAX package, and both as two-process gloo gangs against one process."""
 
 import os
 
@@ -17,7 +18,10 @@ from hivedscheduler_tpu.utils import data as JD
 from hivedscheduler_tpu_torch import serve
 from hivedscheduler_tpu_torch import train as entry
 from hivedscheduler_tpu_torch.models import checkpoint, convert, train, transformer
+from hivedscheduler_tpu_torch.parallel import mesh
 from hivedscheduler_tpu_torch.workloads import common
+
+from ._multiproc import free_port, run_workers
 
 BLOCK = {
     "TPU_VISIBLE_CHIPS": "0,1,2,3",
@@ -40,7 +44,7 @@ def test_parse_env_block_reads_the_schedulers_emitter():
 
 
 def test_bootstrap_lifts_the_block_with_setdefault(monkeypatch):
-    for key in BLOCK:  # set, then unset: the test's changes are undone after it
+    for key in [*BLOCK, "CUDA_VISIBLE_DEVICES"]:  # set, then unset: undone after the test
         monkeypatch.setenv(key, "")
         monkeypatch.delenv(key)
     monkeypatch.setenv("TPU_VISIBLE_CHIPS", "7")  # already set: wins over the block
@@ -50,6 +54,7 @@ def test_bootstrap_lifts_the_block_with_setdefault(monkeypatch):
     assert common.bootstrap_distributed("cpu") == 1
     assert seen == ["cpu"]
     assert os.environ["TPU_VISIBLE_CHIPS"] == "7"
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == "7"  # the grant that won
     for key in BLOCK.keys() - {"TPU_VISIBLE_CHIPS"}:
         assert os.environ[key] == BLOCK[key]
 
@@ -104,15 +109,94 @@ def test_token_dtype_follows_the_vocab():
         entry.token_dtype(128256, "uint16")
 
 
+ENTRY_WORKER = os.path.join(os.path.dirname(__file__), "_torch_entry_worker.py")
+
+
+def gang(mode, world, argv):
+    port = str(free_port())
+    return run_workers(ENTRY_WORKER, [[mode, str(r), str(world), port, *argv]
+                                      for r in range(world)], timeout=240)
+
+
+def test_two_process_train_main_matches_one_process_on_the_same_batches(token_file, capsys):
+    # Two ranks of fsdp 2 (train_llama.py's layout for 2 processes), two rows
+    # each: the global batches are the one-process run's four rows.
+    argv = ["--model", "tiny", "--data", token_file, "--seq", "64", "--steps", "3"]
+    outs = gang("train", 2, argv + ["--batch", "2"])
+    ref = entry.main(argv + ["--batch", "4", "--device", "cpu"])
+    want = [r["loss"] for r in ref.records]
+    for o in outs:
+        assert o["world"] == 2
+        np.testing.assert_allclose(o["losses"], want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("source", ["seed", "ckpt"])
+def test_two_process_serve_main_at_tp2_gives_the_one_process_tokens(source, tmp_path, capsys):
+    argv = ["--model", "tiny", "--temperature", "0", "--requests", "2", "--batch", "2",
+            "--prompt-len", "32", "--new-tokens", "6", "--seed", "4"]
+    if source == "ckpt":  # written by one process, read as each rank's tp shards
+        _, params = entry.build("tiny", 7, "cpu")
+        checkpoint.TrainCheckpointer(str(tmp_path)).save(1, params, train.make_optimizer(params))
+        argv += ["--ckpt", str(tmp_path)]
+    outs = gang("serve", 2, argv)  # tp 2: each rank serves every row
+    ref = serve.main(argv + ["--device", "cpu"])
+    for o in outs:
+        assert o["world"] == 2
+        assert o["tokens"] == [r["tokens"].tolist() for r in ref]
+
+
+def _clear(monkeypatch, *keys):
+    for key in keys:  # set, then unset: the test's changes are undone after it
+        monkeypatch.setenv(key, "")
+        monkeypatch.delenv(key)
+
+
+def test_chip_grant_becomes_the_visible_cards(monkeypatch):
+    _clear(monkeypatch, "CUDA_VISIBLE_DEVICES", "TPU_VISIBLE_CHIPS", common.ENV_BLOCK_VAR)
+    monkeypatch.setenv(common.ENV_BLOCK_VAR, 'TPU_VISIBLE_CHIPS: "2,3"\n')
+    common.lift_env_block()
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == "2,3"
+    # One process a pod takes the pod's first granted card, not card `rank`.
+    assert mesh.cuda_index(os.environ, rank=1, visible=2) == 0
+    assert mesh.cuda_index({}, rank=5, visible=2) == 1
+
+
+def test_cuda_visible_devices_already_set_wins(monkeypatch):
+    _clear(monkeypatch, "TPU_VISIBLE_CHIPS", common.ENV_BLOCK_VAR)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "5")
+    monkeypatch.setenv(common.ENV_BLOCK_VAR, 'TPU_VISIBLE_CHIPS: "2,3"\n')
+    common.lift_env_block()
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == "5"
+
+
+@pytest.mark.parametrize("grant", ["", "a,b", "1,,2", "-1"])
+def test_a_malformed_grant_raises(monkeypatch, grant):
+    _clear(monkeypatch, "CUDA_VISIBLE_DEVICES", "TPU_VISIBLE_CHIPS")
+    monkeypatch.setenv("TPU_VISIBLE_CHIPS", grant)
+    with pytest.raises(ValueError, match="comma list of card indices"):
+        mesh.apply_chip_grant()
+    assert "CUDA_VISIBLE_DEVICES" not in os.environ
+
+
 @pytest.mark.parametrize("module,argv", [
-    (entry, ["--device", "cpu", "--model", "tiny", "--steps", "1"]),
-    (serve, ["--device", "cpu", "--model", "tiny", "--requests", "1"]),
+    (entry, ["--model", "tiny", "--steps", "1", "--seq", "16"]),
+    (serve, ["--model", "tiny", "--requests", "1", "--prompt-len", "8", "--new-tokens", "1"]),
 ])
-def test_more_than_one_process_is_refused(monkeypatch, module, argv):
-    # No rank may train or serve on its own: the sharded step is item 8's.
-    monkeypatch.setattr(module, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        module.main(argv)
+def test_entry_points_apply_the_grant_before_resolving_the_device(monkeypatch, module, argv):
+    # CUDA reads CUDA_VISIBLE_DEVICES once, at its first initialisation, and
+    # resolve_device asks CUDA whether it is available.
+    _clear(monkeypatch, "CUDA_VISIBLE_DEVICES", "TPU_VISIBLE_CHIPS", "JAX_NUM_PROCESSES",
+           common.ENV_BLOCK_VAR)
+    monkeypatch.setenv(common.ENV_BLOCK_VAR, 'TPU_VISIBLE_CHIPS: "2,3"\n')
+    seen = []
+
+    def resolve(device=None):
+        seen.append(os.environ.get("CUDA_VISIBLE_DEVICES"))
+        return torch.device("cpu")
+
+    monkeypatch.setattr(module, "resolve_device", resolve)
+    module.main(argv)
+    assert seen and seen[0] == "2,3"
 
 
 def test_serve_main_on_a_checkpoint_gives_the_jax_greedy_tokens(tmp_path, capsys):
