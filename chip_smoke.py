@@ -24,9 +24,14 @@ neither the kernels line nor the last line, since no main path ran):
              (8 heads without GQA at B2 S8192, B1 S16384 and B1 S32768)
              are held too, and Llama-3-8B's attention as one rank of a tp
              gang holds it at B1 S8192 (H16/Hkv4, H8/Hkv2, H4/Hkv1 for tp
-             2, 4, 8), where all three kernels are also timed. The plain
+             2, 4, 8), where all three kernels are also timed. So is
+             Ulysses' per-rank attention in the longctx twin's meshes (tp 4,
+             the rest sp: H4/Hkv1, H2/Hkv2, H1/Hkv1 for 8, 16 and 32
+             cards), held and timed at B1 S32768 and timed again at B1
+             S131072, the twin's default length, beside SDPA. The plain
              versions run one (batch row, KV head) block at a time, which
-             is what the card holds at S32768.
+             is what the card holds at S32768, and one query head at a
+             time where a group's f32 scores would pass 8 GiB.
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
              tokens through the serving entry point. Launch counts are set
@@ -50,8 +55,12 @@ neither the kernels line nor the last line, since no main path ran):
              finite, the first near ln(vocab) + 0.5, the last below the
              first. The parameters after the warm-up steps are copied to
              the host for phase 8.
-6. workloads - the jobs as the scheduler launches them. A token file of
-             uint32 ids from --seed and a one-pod HIVED_TPU_ENV block; the
+6. workloads - the jobs as the scheduler launches them. A one-pod,
+             one-card bind info and the pod's HIVED_TPU_ENV block go to the
+             pod's launcher (``workloads/launch.py``), which starts this
+             script's ``--workloads-job`` as the pod's process with its
+             per-card block (which must be the process's own); there, a
+             token file of uint32 ids from --seed and the
              training entry point (``train.main``) at Llama-3-8B's full
              width, depth cut to WORKLOAD["layers"] (2; 1 when the disk
              cannot hold the checkpoint), ``--data``, batch 1 x 8192, 3
@@ -82,15 +91,24 @@ neither the kernels line nor the last line, since no main path ran):
              through the sharded serving path at 32 layers, whose 8 greedy
              tokens must equal phase 4's first 8, every prefill layer
              launching the flash kernel. With two cards or more, a 2-rank
-             NCCL gang of the tiny model (``tools/dryrun.py``: fsdp 2, then
-             tp 2) must come within 5e-3 of the one-process loss; with
-             one, the summary records ``"nccl_ranks": 1``.
+             (4 with four cards) NCCL gang of the tiny model
+             (``tools/dryrun.py``, every row that fits: at 4 ranks the
+             sequence rows ``fsdp_sp_tp`` and ``ulysses-sp`` too) must come
+             within 5e-3 of the one-process loss; with one, the summary
+             records ``"nccl_ranks": 1``.
+9. longctx - the long-context twin (``workloads/train_longctx.py``) at
+             Llama-3-8B's full width, depth cut to 2 layers, 3 steps of
+             one 32768-token row from the twin's seeds (on one card sp is 1, so the
+             kernels run at B1 S32768 H32). Every step must launch each
+             kernel once a layer; losses finite and falling; step ms and
+             tokens/s printed.
 
 Each phase logs its seconds. The lines before the last are nvidia-smi's
 name and power limit, then one JSON object with each kernel's numbers (its
-``launches_by_path``: serve, train, workloads, perf, sharded); the last line is
-``{"ok": true, "device": {...}}``. Each kernel's ``tp_shapes`` holds its
-numbers at phase 3's per-rank tp shapes. In the kernels line, the forward's
+``launches_by_path``: serve, train, workloads, perf, sharded, longctx); the
+last line is ``{"ok": true, "device": {...}}``. Each kernel's ``tp_shapes``
+holds its numbers at phase 3's per-rank tp shapes, ``sp_shapes`` at the
+Ulysses per-rank shapes. In the kernels line, the forward's
 ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` and
 ``tflops`` are taken at the serving shape and ``ms_train``,
 ``plain_ms_train``, ``bound_ms_train``, ``bound_by_train``,
@@ -159,17 +177,36 @@ LOSS_BAND = 1.5
 # that its checkpoint (f32 weights and AdamW's two moments, 12 bytes a
 # parameter) is some 18 GB of disk; "samples" rows of the token file.
 WORKLOAD = {"model": "llama3_8b", "layers": 2, "batch": 1, "seq": 8192, "steps": 3,
-            "samples": 6}
+            "samples": 6, "timeout_s": 600}
 SERVE_CKPT = {"batch": 4, "prompt": 2048, "new_tokens": 8}
 # Phase 8: Llama-3-8B's attention as one rank of a tp gang holds it (32/8
 # heads over tp), held and timed in phase 3; the one-rank sharded serving
 # request (phase 4's first prompt, its first new tokens).
 TP_HEADS = {2: (16, 4), 4: (8, 2), 8: (4, 1)}
+# Ulysses' per-rank attention in the longctx twin's meshes (tp 4, the rest
+# sp): cards -> (sp, query heads, KV heads) of the local full-sequence call.
+# At sp 4 and 8 the KV heads are first expanded to the query heads.
+SP_SHAPES = {8: (2, 4, 1), 16: (4, 2, 2), 32: (8, 1, 1)}
+# Held against the plain versions at SP_CHECK_SEQ; timed at the twin's
+# default length too, where the plain version's [S, S] scores (68 GB a
+# head) cannot exist.
+SP_CHECK_SEQ, SP_TIME_SEQ = 32768, 131072
 SHARDED_SERVE = {"batch": 4, "prompt": 2048, "new_tokens": 8}
 # The env block the scheduler writes for a one-pod gang (pod_tpu_env's keys).
 POD_ENV = {"TPU_VISIBLE_CHIPS": "0", "TPU_WORKER_ID": "0", "JAX_PROCESS_ID": "0",
            "TPU_WORKER_HOSTNAMES": "localhost", "JAX_COORDINATOR_ADDRESS": "localhost:8476",
            "JAX_NUM_PROCESSES": "1"}
+# Its pod-bind-info annotation (wire form): one pod on this node, card 0.
+POD_BIND_INFO = {"node": "localhost", "leafCellIsolation": [0], "cellChain": "h100-32",
+                 "affinityGroupBindInfo": [{"podPlacements": [
+                     {"physicalNode": "localhost", "physicalLeafCellIndices": [0]}]}]}
+# Phase 9: the longctx twin at Llama-3-8B's widths, depth cut to 2 layers.
+LONGCTX = {"model": "llama8b", "layers": 2, "seq": 32768, "steps": 3}
+# A gang's loss against one card's on the same bf16 model and tokens: tp
+# reorders the row-parallel products' sums (bf16 activations, about 2^-8
+# relative each), which moves a mean over 32767 targets near 12 by some
+# 1e-3.
+GANG_TOL = 1e-2
 
 
 def log(phase: str, **fields) -> None:
@@ -235,16 +272,25 @@ def flash_bound_ms(kind, b, s, h, hkv, d, causal, dtype) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def head_blocks(b, h, hkv):
-    """(batch rows, query heads, KV head, LSE rows) of each (batch row, KV
-    head) block. Blocks are independent, so the plain versions run one at a
-    time: their f32 [S, S] buffers for one head at S32768 are 4.3 GB each,
-    for all 8 heads more than the card holds."""
+# The most f32 score bytes one plain-version block may hold ([heads, S, S]);
+# its probabilities and their gradient take as much again each.
+PLAIN_BLOCK_BYTES = 8 * 2**30
+
+
+def head_blocks(b, h, hkv, s):
+    """(batch rows, query heads, KV head, LSE rows, last) of each block the
+    plain versions run on: one (batch row, KV head) at a time, and one query
+    head at a time where the group's f32 [S, S] scores would pass
+    ``PLAIN_BLOCK_BYTES`` (4.3 GB a head at S32768: a 4-head group's
+    scores and probabilities would not fit the card). ``last`` marks a
+    (batch row, KV head)'s last block: its dK/dV sum over all of them."""
     grp = h // hkv
+    step = grp if grp * 4 * s * s <= PLAIN_BLOCK_BYTES else 1
     for i in range(b):
         for g in range(hkv):
-            yield (slice(i, i + 1), slice(g * grp, (g + 1) * grp), slice(g, g + 1),
-                   slice(i * h + g * grp, i * h + (g + 1) * grp))
+            for j in range(g * grp, (g + 1) * grp, step):
+                yield (slice(i, i + 1), slice(j, j + step), slice(g, g + 1),
+                       slice(i * h + j, i * h + j + step), j + step == (g + 1) * grp)
 
 
 def check_fwd(name, q, k, v, causal, out, lse) -> dict:
@@ -257,7 +303,7 @@ def check_fwd(name, q, k, v, causal, out, lse) -> dict:
 
     b, s, h, d = q.shape
     o_max = o_sum = lse_max = 0.0
-    for rows, qh, kh, lrows in head_blocks(b, h, k.shape[2]):
+    for rows, qh, kh, lrows, _ in head_blocks(b, h, k.shape[2], s):
         ref_out, ref_lse = A.flash_attention_reference(q[rows, :, qh], k[rows, :, kh],
                                                        v[rows, :, kh], causal)
         d_o = (out[rows, :, qh].float() - ref_out.float()).abs()
@@ -353,6 +399,41 @@ def phase_kernels(seed: int) -> dict:
     return main
 
 
+def bwd_stats(q, k, v, do, lse, delta, causal, dq, dk, dv) -> dict:
+    """Max |delta|, sum |delta| and max |reference| of each gradient against
+    the plain versions, block by block (``head_blocks``; a KV head's dK/dV
+    summed over its query-head blocks before it is compared)."""
+    from hivedscheduler_tpu_torch.ops import attention as A
+
+    b, s, h, _ = q.shape
+    stats = {grad: [0.0, 0.0, 0.0] for grad in ("dq", "dk", "dv")}
+
+    def add(grad, got, ref):
+        diff = (got.float() - ref.float()).abs()
+        st = stats[grad]
+        st[0], st[1] = max(st[0], diff.max().item()), st[1] + diff.sum().item()
+        st[2] = max(st[2], ref.float().abs().max().item())
+
+    ref_dk = ref_dv = None
+    for rows, qh, kh, lrows, last in head_blocks(b, h, k.shape[2], s):
+        qb, kb, vb, dob = q[rows, :, qh], k[rows, :, kh], v[rows, :, kh], do[rows, :, qh]
+        add("dq", dq[rows, :, qh],
+            A.flash_bwd_dq_reference(qb, kb, vb, dob, lse[lrows], delta[lrows], causal))
+        # K/V in f32 (exactly their values: the plain version computes in
+        # f32 throughout) keep the group's partial dK/dV unrounded, so that
+        # their sum rounds once, as the whole group's does.
+        part_dk, part_dv = A.flash_bwd_dkdv_reference(qb, kb.float(), vb.float(), dob,
+                                                      lse[lrows], delta[lrows], causal)
+        ref_dk = part_dk if ref_dk is None else ref_dk + part_dk
+        ref_dv = part_dv if ref_dv is None else ref_dv + part_dv
+        del part_dk, part_dv
+        if last:
+            add("dk", dk[rows, :, kh], ref_dk.to(dk.dtype))
+            add("dv", dv[rows, :, kh], ref_dv.to(dv.dtype))
+            ref_dk = ref_dv = None
+    return stats
+
+
 def time_bwd(q, k, v, out, do, lse, delta, causal) -> dict:
     """Device times of the Delta pre-pass, the two backward kernels, their
     plain versions (one call after one warm-up: the allocator's cache was
@@ -422,9 +503,11 @@ def phase_kernels_bwd(seed: int) -> dict:
         ("bwd_perf_long_context", 1, 16384, 8, 8, 128, True, torch.bfloat16),
         ("bwd_perf_long_context_32k", 1, 32768, 8, 8, 128, True, torch.bfloat16),
     ] + [(f"bwd_tp{tp}", TRAIN["batch"], TRAIN["seq"], h, hkv, 128, True, torch.bfloat16)
-         for tp, (h, hkv) in TP_HEADS.items()]
+         for tp, (h, hkv) in TP_HEADS.items()
+         ] + [(f"bwd_sp_cards{cards}", 1, SP_CHECK_SEQ, h, hkv, 128, True, torch.bfloat16)
+              for cards, (_, h, hkv) in SP_SHAPES.items()]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    main = {"tp_shapes": []}
+    main = {"tp_shapes": [], "sp_shapes": []}
     for name, b, s, h, hkv, d, causal, dtype in cases:
         q = torch.randn(b, s, h, d, device="cuda", dtype=dtype, generator=gen)
         k = torch.randn(b, s, hkv, d, device="cuda", dtype=dtype, generator=gen)
@@ -460,21 +543,7 @@ def phase_kernels_bwd(seed: int) -> dict:
                 raise AssertionError(f"{name}: {grad} {tuple(got.shape)} {got.dtype}")
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{name}: non-finite {grad}")
-        # Max |delta|, sum |delta| and max |reference| of each gradient,
-        # block by block (``head_blocks``).
-        stats = {grad: [0.0, 0.0, 0.0] for grad in ("dq", "dk", "dv")}
-        for rows, qh, kh, lrows in head_blocks(b, h, hkv):
-            args = (q[rows, :, qh], k[rows, :, kh], v[rows, :, kh], do[rows, :, qh],
-                    lse[lrows], delta[lrows], causal)
-            ref_dk, ref_dv = A.flash_bwd_dkdv_reference(*args)
-            ref_dq = A.flash_bwd_dq_reference(*args)
-            for grad, got, ref in (("dq", dq[rows, :, qh], ref_dq), ("dk", dk[rows, :, kh], ref_dk),
-                                   ("dv", dv[rows, :, kh], ref_dv)):
-                diff = (got.float() - ref.float()).abs()
-                st = stats[grad]
-                st[0], st[1] = max(st[0], diff.max().item()), st[1] + diff.sum().item()
-                st[2] = max(st[2], ref.float().abs().max().item())
-            del ref_dk, ref_dv, ref_dq, diff
+        stats = bwd_stats(q, k, v, do, lse, delta, causal, dq, dk, dv)
         for grad, got in (("dq", dq), ("dk", dk), ("dv", dv)):
             max_err, sum_err, scale = stats[grad]
             fields[f"{grad}_max_abs_err"] = max_err
@@ -500,9 +569,84 @@ def phase_kernels_bwd(seed: int) -> dict:
                 "dkdv_max_abs_err": max(fields["dk_max_abs_err"], fields["dv_max_abs_err"]),
                 "dq_max_abs_err": fields["dq_max_abs_err"],
                 **time_bwd(q, k, v, out, do, lse, delta, causal)})
+        elif name.startswith("bwd_sp"):
+            # One rank of a longctx gang under Ulysses: the forward held
+            # too; all three timed here and at SP_TIME_SEQ.
+            cards = int(name[len("bwd_sp_cards"):])
+            fwd = check_fwd(name.replace("bwd_", "fwd_"), q, k, v, causal, out, lse)
+            log("kernels", **fwd)
+            torch.cuda.empty_cache()
+            main["sp_shapes"].append({
+                "cards": cards, "sp": SP_SHAPES[cards][0], "tp": 4,
+                "fwd_max_abs_err": fwd["o_max_abs_err"],
+                "dkdv_max_abs_err": max(fields["dk_max_abs_err"], fields["dv_max_abs_err"]),
+                "dq_max_abs_err": fields["dq_max_abs_err"],
+                **time_sp(q, k, v, out, do, lse, delta, causal, gen)})
+            log("kernels", case=f"sp_timing_cards{cards}", **main["sp_shapes"][-1])
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return main
+
+
+def time_sp(q, k, v, out, do, lse, delta, causal, gen) -> dict:
+    """Ulysses' per-rank shape: each kernel's device time and bound at the
+    checked length and at SP_TIME_SEQ, the plain versions' at the checked
+    length (block by block, as they are held), SDPA's forward and whole
+    backward at SP_TIME_SEQ (K/V repeated to the query heads)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.ops import attention as A
+
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    blocks = list(head_blocks(b, h, hkv, s))
+
+    def plain(fn):
+        def run():
+            for rows, qh, kh, lrows, _ in blocks:
+                fn(q[rows, :, qh], k[rows, :, kh], v[rows, :, kh], do[rows, :, qh],
+                   lse[lrows], delta[lrows])
+        return run
+
+    kernels = {
+        "fwd": (lambda: A.flash_attention(q, k, v, causal),
+                plain(lambda q_, k_, v_, *_: A.flash_attention_reference(q_, k_, v_, causal))),
+        "dkdv": (lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, causal),
+                 plain(lambda *a: A.flash_bwd_dkdv_reference(*a, causal))),
+        "dq": (lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+               plain(lambda *a: A.flash_bwd_dq_reference(*a, causal))),
+    }
+    times = {}
+    for kind, (kernel, ref) in kernels.items():
+        bound, by = flash_bound_ms(kind, b, s, h, hkv, d, causal, q.dtype)
+        times[kind] = {"ms_check": cuda_ms(kernel, 5), "plain_ms_check": cuda_ms(ref, 1, warmup=1),
+                       "bound_ms_check": bound, "bound_by_check": by}
+        torch.cuda.empty_cache()
+    # The twin's default length: new inputs, the kernels and SDPA only.
+    S = SP_TIME_SEQ
+    qt, dot = (torch.randn(b, S, h, d, device="cuda", dtype=q.dtype, generator=gen)
+               for _ in range(2))
+    kt, vt = (torch.randn(b, S, hkv, d, device="cuda", dtype=q.dtype, generator=gen)
+              for _ in range(2))
+    ot, lt = A.flash_attention(qt, kt, vt, causal)
+    dt = A.flash_bwd_delta(ot, dot)
+    for kind, kernel in (("fwd", lambda: A.flash_attention(qt, kt, vt, causal)),
+                         ("dkdv", lambda: A.flash_bwd_dkdv(qt, kt, vt, dot, lt, dt, causal)),
+                         ("dq", lambda: A.flash_bwd_dq(qt, kt, vt, dot, lt, dt, causal))):
+        bound, by = flash_bound_ms(kind, b, S, h, hkv, d, causal, q.dtype)
+        times[kind].update(ms=cuda_ms(kernel, 3), bound_ms=bound, bound_by=by)
+    qs = qt.transpose(1, 2).contiguous().requires_grad_()
+    ks = kt.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    vs = vt.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    library_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal), 3)
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    dos = dot.transpose(1, 2).contiguous()
+    library_bwd = cuda_ms(lambda: torch.autograd.grad(so, (qs, ks, vs), dos, retain_graph=True), 3)
+    del qt, kt, vt, dot, ot, lt, dt, qs, ks, vs, so, dos
+    torch.cuda.empty_cache()
+    return {"shape": [b, S, h, hkv, d], "checked_shape": [b, s, h, hkv, d], **times,
+            "library_fwd_ms": library_fwd, "library_bwd_ms": library_bwd}
 
 
 def phase_serve(seed: int, profile: bool, model: str = "llama3_8b",
@@ -728,10 +872,43 @@ def _dir_bytes(path: str) -> int:
 
 
 def phase_workloads(seed: int) -> dict:
-    """The training job from a token file and the scheduler's env block,
-    its checkpoint, a bitwise resume, and the serving job on the checkpoint
-    (see the module docstring, phase 6). Returns each kernel's launches in
-    the two entry points' runs."""
+    """The jobs as the scheduler launches them (see the module docstring,
+    phase 6): the pod's launcher (``workloads/launch.py``) on a one-pod,
+    one-card bind info and the scheduler's env block starts this script's
+    ``--workloads-job`` as the pod's one process, which runs the training
+    job, its checkpoint and resume, and the serving job. Returns each
+    kernel's launches in the two entry points' runs, as the job counted
+    them."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        bind_info = os.path.join(workdir, "pod-bind-info.json")
+        with open(bind_info, "w") as f:
+            json.dump(POD_BIND_INFO, f)
+        env = dict(os.environ, HIVED_TPU_ENV="".join(f'{k}: "{v}"\n' for k, v in POD_ENV.items()))
+        cmd = [sys.executable, "-m", "hivedscheduler_tpu_torch.workloads.launch",
+               "--bind-info", bind_info, "--master-port", str(_free_port()),
+               "--timeout", str(WORKLOAD["timeout_s"]), "--",
+               "chip_smoke", "--workloads-job", workdir, "--seed", str(seed)]
+        proc = subprocess.run(cmd, env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=subprocess.PIPE, text=True,
+                              timeout=WORKLOAD["timeout_s"] + 60)
+        print(proc.stdout, end="", flush=True)  # the job's own lines
+        if proc.returncode != 0:
+            raise AssertionError(f"the launched workloads job exited {proc.returncode}")
+        results = [json.loads(line)["workloads_job"] for line in proc.stdout.splitlines()
+                   if line.startswith('{"workloads_job"')]
+        if len(results) != 1:
+            raise AssertionError("the launched workloads job printed no result")
+        return results[0]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def workloads_job(seed: int, workdir: str) -> dict:
+    """The pod's process of phase 6, started by the launcher: the training
+    job from a token file, its checkpoint, a bitwise resume, and the
+    serving job on the checkpoint. Returns each kernel's launches in the
+    two entry points' runs."""
     import contextlib
     import io
 
@@ -743,120 +920,118 @@ def phase_workloads(seed: int) -> dict:
     from hivedscheduler_tpu_torch.models import checkpoint, perf, train, transformer
     from hivedscheduler_tpu_torch.utils.data import TokenFileDataset
 
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
-    saved_env = dict(os.environ)
-    try:
-        # Disk for the checkpoint: f32 weights and two f32 moments.
-        layers, config = WORKLOAD["layers"], None
-        free = shutil.disk_usage(workdir).free
-        for layers in (WORKLOAD["layers"], 1):
-            config = dataclasses.replace(transformer.llama3_8b(), n_layers=layers)
-            need = 12 * perf.n_params(transformer.init(config, torch.Generator(), "meta"))
-            if need * 1.1 < free:
-                break
-        else:
-            raise AssertionError(f"{free} bytes free cannot hold a {need}-byte checkpoint")
-        log("workloads", step="disk", free_bytes=free, checkpoint_bytes_needed=need,
-            layers=layers)
+    launched = {k: os.environ.get(k) for k in ("CUDA_VISIBLE_DEVICES", "RANK", "LOCAL_RANK",
+                                               "WORLD_SIZE", "MASTER_ADDR")}
+    if launched != {"CUDA_VISIBLE_DEVICES": "0", "RANK": "0", "LOCAL_RANK": "0",
+                    "WORLD_SIZE": "1", "MASTER_ADDR": "localhost"}:
+        raise AssertionError(f"the launcher's per-card block is not this process's: {launched}")
+    log("workloads", step="launched", **launched)
+    # Disk for the checkpoint: f32 weights and two f32 moments.
+    layers, config = WORKLOAD["layers"], None
+    free = shutil.disk_usage(workdir).free
+    for layers in (WORKLOAD["layers"], 1):
+        config = dataclasses.replace(transformer.llama3_8b(), n_layers=layers)
+        need = 12 * perf.n_params(transformer.init(config, torch.Generator(), "meta"))
+        if need * 1.1 < free:
+            break
+    else:
+        raise AssertionError(f"{free} bytes free cannot hold a {need}-byte checkpoint")
+    log("workloads", step="disk", free_bytes=free, checkpoint_bytes_needed=need,
+        layers=layers)
 
-        tokens = np.random.default_rng(seed).integers(
-            0, config.vocab_size, size=WORKLOAD["samples"] * WORKLOAD["seq"] + 1,
-            dtype=np.uint32)
-        data = os.path.join(workdir, "tokens.bin")
-        tokens.tofile(data)
-        os.environ["HIVED_TPU_ENV"] = "".join(f'{k}: "{v}"\n' for k, v in POD_ENV.items())
+    tokens = np.random.default_rng(seed).integers(
+        0, config.vocab_size, size=WORKLOAD["samples"] * WORKLOAD["seq"] + 1,
+        dtype=np.uint32)
+    data = os.path.join(workdir, "tokens.bin")
+    tokens.tofile(data)
 
-        _reset_launches()
-        t0 = time.perf_counter()
-        job = entry.main(["--model", WORKLOAD["model"], "--layers", str(layers),
-                          "--batch", str(WORKLOAD["batch"]), "--seq", str(WORKLOAD["seq"]),
-                          "--steps", str(WORKLOAD["steps"]), "--data", data,
-                          "--seed", str(seed)])
-        train_launches = entry.kernel_launches()
-        losses = [r["loss"] for r in job.records]
-        if os.environ.get("JAX_PROCESS_ID") != "0" or os.environ.get("JAX_NUM_PROCESSES") != "1":
-            raise AssertionError("HIVED_TPU_ENV was not lifted into the environment")
-        if not all(np.isfinite(losses)):
-            raise AssertionError(f"non-finite training loss: {losses}")
-        for r in job.records:
-            if set(r["launches"].values()) != {layers}:
-                raise AssertionError(f"train step {r['step']} launched {r['launches']}, "
-                                     f"not {layers} each")
-        log("workloads", step="train", layers=layers, losses=losses,
-            step_ms=[r["step_ms"] for r in job.records], launches=train_launches,
-            seconds=time.perf_counter() - t0)
+    _reset_launches()
+    t0 = time.perf_counter()
+    job = entry.main(["--model", WORKLOAD["model"], "--layers", str(layers),
+                      "--batch", str(WORKLOAD["batch"]), "--seq", str(WORKLOAD["seq"]),
+                      "--steps", str(WORKLOAD["steps"]), "--data", data,
+                      "--seed", str(seed)])
+    train_launches = entry.kernel_launches()
+    losses = [r["loss"] for r in job.records]
+    if os.environ.get("JAX_PROCESS_ID") != "0" or os.environ.get("JAX_NUM_PROCESSES") != "1":
+        raise AssertionError("HIVED_TPU_ENV was not lifted into the environment")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    for r in job.records:
+        if set(r["launches"].values()) != {layers}:
+            raise AssertionError(f"train step {r['step']} launched {r['launches']}, "
+                                 f"not {layers} each")
+    log("workloads", step="train", layers=layers, losses=losses,
+        step_ms=[r["step_ms"] for r in job.records], launches=train_launches,
+        seconds=time.perf_counter() - t0)
 
-        ckdir = os.path.join(workdir, "ckpt")
-        ckpt = checkpoint.TrainCheckpointer(ckdir)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ckpt.save(WORKLOAD["steps"], job.params, job.optimizer)
-        write_s = time.perf_counter() - t0
-        nbytes = _dir_bytes(ckdir)
-        with torch.no_grad():
-            served_ref = transformer.cast(job.params, config.dtype)  # what was saved, in bf16
+    ckdir = os.path.join(workdir, "ckpt")
+    ckpt = checkpoint.TrainCheckpointer(ckdir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(WORKLOAD["steps"], job.params, job.optimizer)
+    write_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(ckdir)
+    with torch.no_grad():
+        served_ref = transformer.cast(job.params, config.dtype)  # what was saved, in bf16
 
-        fresh = transformer.init(config, torch.Generator(device="cuda").manual_seed(seed + 7),
-                                 "cuda", dtype=torch.float32)
-        fresh_opt = train.make_optimizer(fresh)
-        t0 = time.perf_counter()
-        _, _, step = ckpt.restore(fresh, fresh_opt)
-        torch.cuda.synchronize()
-        read_s = time.perf_counter() - t0
-        live_state = job.optimizer.state_dict()["state"]
-        rest_state = fresh_opt.state_dict()["state"]
-        if not (step == WORKLOAD["steps"] and _tree_equal(job.params, fresh)
-                and all(_equal(live_state[i][k], rest_state[i][k])
-                        for i in live_state for k in live_state[i])):
-            raise AssertionError("restored parameters or AdamW state differ from the saved ones")
-        batch = torch.from_numpy(
-            TokenFileDataset(data, WORKLOAD["seq"] - 1, np.uint32).gather([0])).cuda()
-        live_loss = train.train_step(job.params, job.optimizer, batch, job.config, batch.device)
-        rest_loss = train.train_step(fresh, fresh_opt, batch, job.config, batch.device)
-        if not (torch.equal(live_loss, rest_loss) and _tree_equal(job.params, fresh)):
-            raise AssertionError(f"a step after resume differs: loss {live_loss.item()} live, "
-                                 f"{rest_loss.item()} restored")
-        log("workloads", step="checkpoint", bytes=nbytes, write_s=write_s, read_s=read_s,
-            write_gb_s=nbytes / write_s / 1e9, read_gb_s=nbytes / read_s / 1e9,
-            resume_bitwise=True, loss_after_resume=live_loss.item())
-        del job, fresh, fresh_opt, live_state, rest_state, batch
-        torch.cuda.empty_cache()
+    fresh = transformer.init(config, torch.Generator(device="cuda").manual_seed(seed + 7),
+                             "cuda", dtype=torch.float32)
+    fresh_opt = train.make_optimizer(fresh)
+    t0 = time.perf_counter()
+    _, _, step = ckpt.restore(fresh, fresh_opt)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    live_state = job.optimizer.state_dict()["state"]
+    rest_state = fresh_opt.state_dict()["state"]
+    if not (step == WORKLOAD["steps"] and _tree_equal(job.params, fresh)
+            and all(_equal(live_state[i][k], rest_state[i][k])
+                    for i in live_state for k in live_state[i])):
+        raise AssertionError("restored parameters or AdamW state differ from the saved ones")
+    batch = torch.from_numpy(
+        TokenFileDataset(data, WORKLOAD["seq"] - 1, np.uint32).gather([0])).cuda()
+    live_loss = train.train_step(job.params, job.optimizer, batch, job.config, batch.device)
+    rest_loss = train.train_step(fresh, fresh_opt, batch, job.config, batch.device)
+    if not (torch.equal(live_loss, rest_loss) and _tree_equal(job.params, fresh)):
+        raise AssertionError(f"a step after resume differs: loss {live_loss.item()} live, "
+                             f"{rest_loss.item()} restored")
+    log("workloads", step="checkpoint", bytes=nbytes, write_s=write_s, read_s=read_s,
+        write_gb_s=nbytes / write_s / 1e9, read_gb_s=nbytes / read_s / 1e9,
+        resume_bitwise=True, loss_after_resume=live_loss.item())
+    del job, fresh, fresh_opt, live_state, rest_state, batch
+    torch.cuda.empty_cache()
 
-        out = io.StringIO()
-        _reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            results = serve.main(["--model", WORKLOAD["model"], "--layers", str(layers),
-                                  "--ckpt", ckdir, "--batch", str(SERVE_CKPT["batch"]),
-                                  "--prompt-len", str(SERVE_CKPT["prompt"]),
-                                  "--new-tokens", str(SERVE_CKPT["new_tokens"]),
-                                  "--temperature", "0", "--requests", "1",
-                                  "--seed", str(seed)])
-        serve_launches = entry.kernel_launches()
-        serve_s = time.perf_counter() - t0
-        print(out.getvalue(), end="", flush=True)
-        if f"restored checkpoint step {WORKLOAD['steps']} " not in out.getvalue():
-            raise AssertionError("serve.main did not print the restored step")
-        if serve_launches["flash_fwd"] != layers:
-            raise AssertionError(f"serving prefill launched the flash kernel "
-                                 f"{serve_launches['flash_fwd']} times for {layers} layers")
-        prompt = torch.from_numpy(serve.synthetic_tokens(
-            np.random.default_rng(seed + 1), SERVE_CKPT["batch"], SERVE_CKPT["prompt"],
-            config.vocab_size)).cuda()
-        ref = serve.run_request(served_ref, prompt, config, SERVE_CKPT["new_tokens"])
-        if not torch.equal(results[0]["tokens"], ref["tokens"]):
-            raise AssertionError("tokens served from the checkpoint differ from the "
-                                 "trainer's parameters' tokens")
-        log("workloads", step="serve", **SERVE_CKPT, ttft_ms=results[0]["ttft_ms"],
-            decode_tok_s=results[0]["decode_tok_s"], tokens_equal_live=True,
-            launches=serve_launches, seconds=serve_s)
-        del served_ref
-        torch.cuda.empty_cache()
-        return {k: train_launches[k] + serve_launches[k] for k in train_launches}
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-        os.environ.clear()
-        os.environ.update(saved_env)
+    out = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = serve.main(["--model", WORKLOAD["model"], "--layers", str(layers),
+                              "--ckpt", ckdir, "--batch", str(SERVE_CKPT["batch"]),
+                              "--prompt-len", str(SERVE_CKPT["prompt"]),
+                              "--new-tokens", str(SERVE_CKPT["new_tokens"]),
+                              "--temperature", "0", "--requests", "1",
+                              "--seed", str(seed)])
+    serve_launches = entry.kernel_launches()
+    serve_s = time.perf_counter() - t0
+    print(out.getvalue(), end="", flush=True)
+    if f"restored checkpoint step {WORKLOAD['steps']} " not in out.getvalue():
+        raise AssertionError("serve.main did not print the restored step")
+    if serve_launches["flash_fwd"] != layers:
+        raise AssertionError(f"serving prefill launched the flash kernel "
+                             f"{serve_launches['flash_fwd']} times for {layers} layers")
+    prompt = torch.from_numpy(serve.synthetic_tokens(
+        np.random.default_rng(seed + 1), SERVE_CKPT["batch"], SERVE_CKPT["prompt"],
+        config.vocab_size)).cuda()
+    ref = serve.run_request(served_ref, prompt, config, SERVE_CKPT["new_tokens"])
+    if not torch.equal(results[0]["tokens"], ref["tokens"]):
+        raise AssertionError("tokens served from the checkpoint differ from the "
+                             "trainer's parameters' tokens")
+    log("workloads", step="serve", **SERVE_CKPT, ttft_ms=results[0]["ttft_ms"],
+        decode_tok_s=results[0]["decode_tok_s"], tokens_equal_live=True,
+        launches=serve_launches, seconds=serve_s)
+    del served_ref
+    torch.cuda.empty_cache()
+    return {k: train_launches[k] + serve_launches[k] for k in train_launches}
 
 
 def phase_perf(profile: bool) -> dict:
@@ -941,7 +1116,6 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
     from hivedscheduler_tpu_torch.ops import attention as A
     from hivedscheduler_tpu_torch.parallel import mesh as pmesh
     from hivedscheduler_tpu_torch.parallel import sharding
-    from hivedscheduler_tpu_torch.tools import dryrun
 
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
                             world_size=1, rank=0)
@@ -1034,15 +1208,130 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    # (c) A gang across cards, where the machine has them.
-    ranks = 1
-    if torch.cuda.device_count() >= 2:
-        result = dryrun.dryrun(2, rows=("fsdp", "fsdp_tp"), device="cuda")
-        ranks = 2
-        log("sharded", step="gang", **result)
+    ranks = phase_gang()  # (c) gangs across cards, where the machine has them
     log("sharded", step="summary", nccl_ranks=ranks, step_ms_mean=step_ms,
         unsharded_step_ms_mean=trained["step_ms_mean"])
     return {k: train_launches[k] + serve_launches[k] for k in train_launches}
+
+
+# One step line of the twin; the ranks' lines share one pipe, so they are
+# found anywhere in it, not line by line.
+_TWIN_STEP = re.compile(
+    r"step (\d+) loss ([-\d.]+) \(([\d.]+) ms, \d+ tok/s, launches (\{[^}]*\})\)")
+
+
+def phase_gang() -> int:
+    """Gangs across cards, where the machine has two or more (see the
+    module docstring, phase 8): every dryrun row that fits as an NCCL gang
+    of 2 ranks, or 4 with four cards (the sequence rows then launch the
+    kernels on every rank); with four cards, also the longctx twin as the
+    scheduler would start it on a pod granted four cards: the pod's
+    launcher on a one-pod, four-card bind info, one process per card,
+    whose losses must come within GANG_TOL of the twin's on one card.
+    Returns the ranks of the gang (1, and nothing run, on one card)."""
+    import ast
+
+    import torch
+
+    from hivedscheduler_tpu_torch.tools import dryrun
+    from hivedscheduler_tpu_torch.workloads import train_longctx
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        return 1
+    ranks = 4 if count >= 4 else 2
+    result = dryrun.dryrun(ranks, device="cuda")
+    log("gang", step="dryrun", ranks=ranks, **result)
+    layers = train_longctx.MODELS["tiny"]().n_layers
+    for row, per_rank in result["launches"].items():
+        # Every row attends through the kernels on every rank (the sequence
+        # rows through Ulysses' full-sequence call), once a layer.
+        if any(set(n.values()) != {layers} for n in per_rank):
+            raise AssertionError(f"dryrun row {row}: kernel launches {per_rank}")
+    if ranks < 4:
+        return ranks
+    argv = ["--model", LONGCTX["model"], "--layers", str(LONGCTX["layers"]),
+            "--seq", str(LONGCTX["seq"]), "--steps", str(LONGCTX["steps"])]
+    one = train_longctx.main(argv)  # this process, card 0
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    try:
+        bind_info = os.path.join(workdir, "pod-bind-info.json")
+        cards = list(range(ranks))
+        with open(bind_info, "w") as f:
+            json.dump({**POD_BIND_INFO, "leafCellIsolation": cards, "affinityGroupBindInfo": [
+                {"podPlacements": [{"physicalNode": "localhost",
+                                    "physicalLeafCellIndices": cards}]}]}, f)
+        proc = subprocess.run(
+            [sys.executable, "-m", "hivedscheduler_tpu_torch.workloads.launch",
+             "--bind-info", bind_info, "--master-port", str(_free_port()), "--timeout", "600",
+             "--", "hivedscheduler_tpu_torch.workloads.train_longctx", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, text=True,
+            timeout=660)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the launched longctx gang exited {proc.returncode}")
+    steps = [m.groups() for m in _TWIN_STEP.finditer(proc.stdout)]
+    if len(steps) != ranks * LONGCTX["steps"]:
+        raise AssertionError(f"{len(steps)} step lines from {ranks} ranks")
+    losses, step_ms = [], []
+    for i, r in enumerate(one):
+        mine = [st for st in steps if int(st[0]) == i]
+        got = {float(st[1]) for st in mine}
+        if len(got) != 1:
+            raise AssertionError(f"step {i}: the ranks report different losses {got}")
+        losses.append(got.pop())
+        if abs(losses[-1] - r["loss"]) > GANG_TOL:
+            raise AssertionError(f"step {i}: gang loss {losses[-1]} vs one card {r['loss']}")
+        step_ms.append(max(float(st[2]) for st in mine))
+        for st in mine:
+            # tp 4 keeps whole GQA groups on each rank: the kernels run once
+            # a layer on every rank.
+            if set(ast.literal_eval(st[3]).values()) != {LONGCTX["layers"]}:
+                raise AssertionError(f"step {i}: a rank launched {st[3]}")
+    mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
+    one_ms = sum(r["step_ms"] for r in one[1:]) / len(one[1:])
+    mesh = train_longctx.mesh_config(ranks, train_longctx.MODELS[LONGCTX["model"]]().n_kv_heads)
+    log("gang", step="longctx", ranks=ranks, mesh=dataclasses.asdict(mesh), losses=losses,
+        losses_one_card=[r["loss"] for r in one], tol=GANG_TOL, step_ms=step_ms,
+        step_ms_mean=mean_ms, tokens_per_s=LONGCTX["seq"] / (mean_ms * 1e-3),
+        one_card_step_ms_mean=one_ms, speedup=one_ms / mean_ms)
+    return ranks
+
+
+def phase_longctx() -> dict:
+    """The long-context twin (``workloads/train_longctx.py``) on this card
+    (see the module docstring, phase 9; its seeds are the twin's own);
+    returns each kernel's launches."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as A
+    from hivedscheduler_tpu_torch.workloads import train_longctx
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    recs = train_longctx.main(["--model", LONGCTX["model"], "--layers", str(LONGCTX["layers"]),
+                               "--seq", str(LONGCTX["seq"]), "--steps", str(LONGCTX["steps"])])
+    launches = A.kernel_launches()
+    losses = [r["loss"] for r in recs]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite longctx loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"longctx loss did not fall: {losses}")
+    for r in recs:
+        if set(r["launches"].values()) != {LONGCTX["layers"]}:
+            raise AssertionError(f"longctx step {r['step']} launched {r['launches']}, not "
+                                 f"{LONGCTX['layers']} each")
+    timed = recs[1:]  # the first step pays for cuBLAS's and the allocator's warm-up
+    step_ms = sum(r["step_ms"] for r in timed) / len(timed)
+    log("longctx", **LONGCTX, losses=losses, step_ms=[r["step_ms"] for r in recs],
+        step_ms_mean=step_ms, tokens_per_s=LONGCTX["seq"] / (step_ms * 1e-3),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def device_time_rows(prof) -> list:
@@ -1120,6 +1409,19 @@ def profile_request(params, prompt, config, unprofiled: dict, new_tokens: int = 
             port_kernels=port_kernel_rows(rows))
 
 
+def sp_shapes(kb: dict, kind: str) -> list:
+    """One kernel's numbers at phase 3's Ulysses per-rank shapes, for the
+    kernels line: held at the checked length, timed there (``*_check``,
+    with the plain version) and at SP_TIME_SEQ, where the plain version
+    cannot run (``plain_ms`` null). ``library_ms``: SDPA's forward for the
+    forward kernel, its whole backward for the backward ones."""
+    return [{"cards": r["cards"], "sp": r["sp"], "tp": r["tp"], "shape": r["shape"],
+             "checked_shape": r["checked_shape"], "max_abs_err": r[f"{kind}_max_abs_err"],
+             "plain_ms": None, **r[kind],
+             "library_ms": r["library_fwd_ms" if kind == "fwd" else "library_bwd_ms"]}
+            for r in kb["sp_shapes"]]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="smoke run of the port on one card")
     parser.add_argument("--seed", type=int, default=0)
@@ -1129,6 +1431,10 @@ def main() -> int:
                              "perf harness's model, unsharded and sharded")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel checks and timings (phase 3)")
+    parser.add_argument("--gang-only", action="store_true",
+                        help="build, then only the gangs across cards (phase 8's last part); "
+                             "needs two cards or more")
+    parser.add_argument("--workloads-job", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -1136,6 +1442,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.workloads_job:  # phase 6's pod process, started by the launcher
+        print(json.dumps({"workloads_job": workloads_job(args.seed, args.workloads_job)}),
+              flush=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
@@ -1151,6 +1461,11 @@ def main() -> int:
         return out
 
     log("build", seconds=_build.build_all(), sources=[s.name for s in _build.sources()])
+    if args.gang_only:
+        if timed("gang", phase_gang) < 2:
+            raise AssertionError("--gang-only needs two cards or more")
+        print(smi)
+        return 0
     k = timed("kernels", phase_kernels, args.seed)
     kb = timed("kernels_bwd", phase_kernels_bwd, args.seed)
     if args.kernels_only:
@@ -1161,6 +1476,7 @@ def main() -> int:
     w = timed("workloads", phase_workloads, args.seed)
     p = timed("perf", phase_perf, args.profile)
     sh = timed("sharded", phase_sharded, args.seed, args.profile, s, t)
+    lc = timed("longctx", phase_longctx)
 
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     kernels = [{
@@ -1169,10 +1485,10 @@ def main() -> int:
         "source": source + "flash_fwd.cu",
         "replaces": "hivedscheduler_tpu/ops/attention.py:133",
         "launches": (s["launches"] + t["launches"]["flash_fwd"] + w["flash_fwd"] + p["flash_fwd"]
-                     + sh["flash_fwd"]),
+                     + sh["flash_fwd"] + lc["flash_fwd"]),
         "launches_by_path": {"serve": s["launches"], "train": t["launches"]["flash_fwd"],
                              "workloads": w["flash_fwd"], "perf": p["flash_fwd"],
-                             "sharded": sh["flash_fwd"]},
+                             "sharded": sh["flash_fwd"], "longctx": lc["flash_fwd"]},
         # Held at the serving shape and at the training shape.
         "max_abs_err": max(k["o_max_abs_err"], kb["fwd"]["o_max_abs_err"]),
         **{key + suffix: fields[src] for suffix, fields in (("", k), ("_train", kb["fwd"]))
@@ -1185,6 +1501,7 @@ def main() -> int:
                            ("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
                            ("bound_by", "bound_by"), ("library_ms", "library_ms"))}}
                       for r in kb["tp_shapes"]],
+        "sp_shapes": sp_shapes(kb, "fwd"),
     }]
     for name, kind, line in (("flash_bwd_dkdv", "dkdv", 201), ("flash_bwd_dq", "dq", 278)):
         kernels.append({
@@ -1192,9 +1509,9 @@ def main() -> int:
             "route": "cuda",
             "source": source + "flash_bwd.cu",
             "replaces": f"hivedscheduler_tpu/ops/attention.py:{line}",
-            "launches": t["launches"][name] + w[name] + p[name] + sh[name],
+            "launches": t["launches"][name] + w[name] + p[name] + sh[name] + lc[name],
             "launches_by_path": {"train": t["launches"][name], "workloads": w[name],
-                                 "perf": p[name], "sharded": sh[name]},
+                                 "perf": p[name], "sharded": sh[name], "longctx": lc[name]},
             "max_abs_err": kb[f"{kind}_max_abs_err"],
             "ms": kb[kind]["ms"],
             "plain_ms": kb[kind]["plain_ms"],
@@ -1209,6 +1526,7 @@ def main() -> int:
                            **{key: r[kind][key] for key in
                               ("ms", "plain_ms", "bound_ms", "bound_by")},
                            "library_ms": r["library_ms"]} for r in kb["tp_shapes"]],
+            "sp_shapes": sp_shapes(kb, kind),
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

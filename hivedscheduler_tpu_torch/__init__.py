@@ -22,8 +22,13 @@ harness (``python -m hivedscheduler_tpu_torch.models.perf``,
 sharded step and serving mesh (``parallel/sharding.py``: ZeRO-3 over dp x
 fsdp, tensor parallelism over tp, placed by the JAX package's rule table),
 checkpoints that move between layouts, and the gang dryrun
-(``python -m hivedscheduler_tpu_torch.tools.dryrun 4``). Sequence,
-pipeline and expert parallelism are not ported yet.
+(``python -m hivedscheduler_tpu_torch.tools.dryrun 4``). A pod runs one
+process per granted card (``gpu/env.py``, the pod launcher
+``workloads/launch.py``; H100 cell types in ``gpu/topology.py``), and
+long-context gangs shard the sequence (``parallel/ulysses.py`` onto the
+flash kernels, ``parallel/ring.py``; the twin
+``workloads/train_longctx.py``). Pipeline and expert parallelism are not
+ported yet.
 """
 
 from __future__ import annotations

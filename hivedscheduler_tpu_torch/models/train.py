@@ -6,8 +6,9 @@ in ``config.dtype`` from f32 master parameters, each block checkpointed
 under ``config.remat_policy``; attention's backward runs the hand-written
 flash backward kernels. On a mesh (``init_sharded``, ``make_train_step``)
 the parameters and AdamW's moments are DTensors placed by the rule table
-(ZeRO-3 over fsdp, tp over heads/mlp/vocab, dp replicating), the batch is
-each rank's rows, and the step's collectives are ``parallel/sharding.py``'s.
+(ZeRO-3 over fsdp, tp over heads/mlp/vocab, dp and sp replicating), the
+batch is each rank's rows and, with sp > 1, its shard of the columns; the
+step's collectives are ``parallel/sharding.py``'s.
 """
 
 from __future__ import annotations
@@ -86,23 +87,46 @@ def next_token_loss(
     ``fused`` (default: vocab >= FUSED_LOSS_MIN_VOCAB and the vocab not
     sharded over tp) takes the chunked logsumexp. On an active mesh the
     loss is the mean over this rank's rows, and with tp > 1 the
-    log-softmax is vocab-parallel over the tp-sharded logits."""
-    tp = sharding.axes_size("tp", mesh) if sharding.is_active(mesh) else 1
+    log-softmax is vocab-parallel over the tp-sharded logits.
+
+    With sp > 1 ``tokens`` are this rank's shard of the columns: its last
+    position's target is the next sp rank's first token (:func:`_sp_targets`),
+    only the last sp rank's last position goes unscored, and the loss is
+    this rank's share of the mean over its rows' S - 1 global targets, so
+    that the sp ranks' losses sum to it (``sharding.mean_over_batch``)."""
+    active = sharding.is_active(mesh)
+    tp = sharding.axes_size("tp", mesh) if active else 1
+    sp = sharding.axes_size("sp", mesh) if active else 1
     if fused is None:
         fused = config.vocab_size >= FUSED_LOSS_MIN_VOCAB and tp == 1
-    targets = tokens[:, 1:]
+    targets = _sp_targets(tokens, mesh) if sp > 1 else tokens[:, 1:]
+    n = targets.shape[1]  # positions scored on this rank
     if fused:
         if tp > 1:
             raise ValueError("the fused loss needs the vocab whole (tp == 1)")
         x, head = transformer.forward_hidden(params, tokens, config, mesh)
-        b, s, d = x.shape
-        return _chunked_ce(x[:, :-1].reshape(b * (s - 1), d), head, targets.reshape(-1), chunk)
-    logits = transformer.forward(params, tokens, config, mesh)  # [B, S, V/tp] f32
-    if tp > 1:
-        v = logits.shape[-1]
-        return sharding.vocab_parallel_nll(logits[:, :-1].reshape(-1, v), targets.reshape(-1), mesh)
-    logp = F.log_softmax(logits[:, :-1], dim=-1)
-    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+        b, _, d = x.shape
+        loss = _chunked_ce(x[:, :n].reshape(b * n, d), head, targets.reshape(-1), chunk)
+    else:
+        logits = transformer.forward(params, tokens, config, mesh)  # [B, S, V/tp] f32
+        if tp > 1:
+            v = logits.shape[-1]
+            loss = sharding.vocab_parallel_nll(logits[:, :n].reshape(-1, v), targets.reshape(-1),
+                                               mesh)
+        else:
+            logp = F.log_softmax(logits[:, :n], dim=-1)
+            loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
+    return loss if sp == 1 else loss * (n / (sp * tokens.shape[1] - 1))
+
+
+def _sp_targets(tokens: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """This sp shard's targets: its own ``tokens[:, 1:]``, then the next sp
+    rank's first token (passed back over the ring), except on the last sp
+    rank, whose last position has no target."""
+    first_of_next = sharding.shift(tokens[:, :1], mesh, "sp", -1)
+    if mesh.get_local_rank("sp") == sharding.axes_size("sp", mesh) - 1:
+        return tokens[:, 1:]
+    return torch.cat([tokens[:, 1:], first_of_next], dim=1)
 
 
 def make_optimizer(
@@ -172,8 +196,13 @@ def init_sharded(
     (``transformer.init_distributed``: no rank ever holds more than one
     whole leaf, and the values are ``transformer.init``'s from the same
     generator) and their AdamW, whose moments take the placements of
-    :func:`shardings_for`. Returns (params, optimizer)."""
-    params = transformer.init_distributed(config, mesh, generator, device, torch.float32)
+    :func:`shardings_for`. Returns (params, optimizer). On an inactive
+    mesh (one process, no group) they are ``transformer.init``'s plain
+    tensors, for the unsharded step."""
+    if sharding.is_active(mesh):
+        params = transformer.init_distributed(config, mesh, generator, device, torch.float32)
+    else:
+        params = transformer.init(config, generator, device, torch.float32)
     return params, make_optimizer(params, learning_rate, weight_decay)
 
 

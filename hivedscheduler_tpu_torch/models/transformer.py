@@ -15,7 +15,9 @@ With an active ``mesh`` the parameters are DTensors placed by
 gathers its layer over fsdp inside its checkpoint and runs Megatron tensor
 parallelism over tp; the stacked tree stays the public layout, so
 checkpoints and ``convert.py`` see the same names on one process and a
-gang. Sequence and pipeline parallelism belong to later slices.
+gang. With sp > 1 each rank holds a contiguous shard of the sequence and
+attends through ``sharding.sp_attention`` (Ulysses or ring, ``sp_mode``).
+Pipeline parallelism belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -60,6 +62,14 @@ class TransformerConfig:
     # "dots+flash": both.
     remat_policy: str = "full"
     tied_embeddings: bool = False
+    # Sequence-parallel backend when the mesh has sp > 1
+    # (``parallel/sharding.sp_attention``): "auto" takes Ulysses where it is
+    # legal and the tensors are on the card (the flash kernels run on the
+    # full sequence), ring attention otherwise; "ring"/"ulysses" force one.
+    sp_mode: str = "auto"
+
+    def __post_init__(self):
+        sharding.validate_sp_mode(self.sp_mode)
 
     @property
     def head_dim(self) -> int:
@@ -271,15 +281,33 @@ def _block(
     ``sharding.sharded_mha``) + SwiGLU. On an active mesh ``layer`` holds
     this rank's tp shards (whole over fsdp): q/k/v and the MLP's gate and
     up products are column-parallel, ``wo`` and ``w_down`` row-parallel,
-    each followed by the tp all-reduce that GSPMD inserts in JAX."""
+    each followed by the tp all-reduce that GSPMD inserts in JAX.
+
+    With sp > 1, ``x`` is this rank's sequence shard: RoPE takes the
+    shard's global positions (the JAX block sees the global sequence under
+    GSPMD) and attention goes through ``sharding.sp_attention`` on the tp
+    rank's whole heads."""
     c = config
     b, s, _ = x.shape
     h = sharding.copy_to_tp(rms_norm(x, layer["ln1"]), mesh)
-    positions = torch.arange(s, device=x.device)
-    attn = sharding.sharded_mha(
-        h @ layer["wq"], h @ layer["wk"], h @ layer["wv"], mesh, c.n_heads, c.n_kv_heads,
-        rotary=lambda t: rope(t, positions, c.rope_theta),
-    )
+    sp = sharding.axes_size("sp", mesh) if sharding.is_active(mesh) else 1
+    if sp > 1:
+        tp = sharding.axes_size("tp", mesh)
+        if c.n_heads % tp or c.n_kv_heads % tp:
+            raise ValueError(f"sequence parallelism needs tp={tp} to divide the {c.n_heads} "
+                             f"heads and {c.n_kv_heads} KV heads")
+        positions = mesh.get_local_rank("sp") * s + torch.arange(s, device=x.device)
+        q, k, v = ((h @ layer[w]).reshape(b, s, -1, c.head_dim) for w in ("wq", "wk", "wv"))
+        attn = sharding.sp_attention(
+            rope(q, positions, c.rope_theta), rope(k, positions, c.rope_theta), v, mesh,
+            causal=True, sp_mode=c.sp_mode,
+        ).reshape(b, s, -1)
+    else:
+        positions = torch.arange(s, device=x.device)
+        attn = sharding.sharded_mha(
+            h @ layer["wq"], h @ layer["wk"], h @ layer["wv"], mesh, c.n_heads, c.n_kv_heads,
+            rotary=lambda t: rope(t, positions, c.rope_theta),
+        )
     x = x + sharding.reduce_from_tp(attn @ layer["wo"], mesh)
     h = sharding.copy_to_tp(rms_norm(x, layer["ln2"]), mesh)
     out = (F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])) @ layer["w_down"]

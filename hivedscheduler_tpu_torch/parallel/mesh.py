@@ -12,9 +12,13 @@ the scheduler writes at bind time, then lays computation out over a
   - ``sp``:   sequence/context parallelism.
   - ``tp``:   tensor parallelism, innermost (nearest ranks).
 
-The env block is the JAX one (``JAX_COORDINATOR_ADDRESS``,
-``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``); it is read as it is, so one
-scheduler serves both packages.
+Two env blocks boot a process. A per-card block (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``, ``LOCAL_RANK``), which the
+pod's launcher (``workloads/launch.py``) gives each process it starts, one
+per granted card (``gpu/env.pod_gpu_env``), comes first. Without one, the
+scheduler's JAX block (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+``JAX_PROCESS_ID``) is read as it is, one process a pod, so one scheduler
+serves both packages.
 """
 
 from __future__ import annotations
@@ -50,9 +54,10 @@ def apply_chip_grant(env: Optional[MutableMapping[str, str]] = None) -> None:
     shows, unless ``CUDA_VISIBLE_DEVICES`` is already set. A grant that is
     empty or not a comma list of integers raises. Touches no CUDA API: CUDA
     reads the variable once, when it first initialises, so call this
-    before anything asks CUDA about its devices. One process drives the
-    pod's first granted card; one process per granted card is ROADMAP
-    queue 1 item 13."""
+    before anything asks CUDA about its devices. A process that the pod's
+    launcher started keeps the one card its per-card block names; a pod
+    booted from the JAX block alone runs one process, on its first granted
+    card (``cuda_index``)."""
     e = os.environ if env is None else env
     grant = e.get(GRANT_VAR)
     if grant is None:
@@ -63,33 +68,60 @@ def apply_chip_grant(env: Optional[MutableMapping[str, str]] = None) -> None:
 
 
 def cuda_index(env: Mapping[str, str], rank: int, visible: int) -> int:
-    """The card a process takes among the ``visible`` ones: the first when
-    the scheduler granted the pod its cards (one process a pod), else the
-    rank's modulo the count (processes sharing one node's cards)."""
+    """The card a process booted from the JAX block takes among the
+    ``visible`` ones: the first when the scheduler granted the pod its
+    cards (one process a pod), else the rank's modulo the count (processes
+    sharing one node's cards)."""
     return 0 if GRANT_VAR in env else rank % visible
+
+
+# The per-card block's keys (``gpu/env.pod_gpu_env``).
+PER_CARD_VARS = ("RANK", "WORLD_SIZE")
+
+
+def has_per_card_block(env: Mapping[str, str]) -> bool:
+    """True when ``env`` holds a per-card block, which wins over the JAX
+    block: the launcher's children also inherit the pod's JAX block, whose
+    ``JAX_NUM_PROCESSES`` counts pods, not cards."""
+    return all(k in env for k in PER_CARD_VARS)
+
+
+def process_rank(env: Optional[Mapping[str, str]] = None) -> int:
+    """This process's rank: the per-card block's ``RANK``, else the JAX
+    block's ``JAX_PROCESS_ID``, else 0."""
+    e = os.environ if env is None else env
+    return int(e["RANK"] if has_per_card_block(e) else e.get("JAX_PROCESS_ID", "0"))
 
 
 def initialize_from_env(
     env: Optional[Mapping[str, str]] = None, device: Device = None
 ) -> None:
-    """Boot ``torch.distributed`` from the env block the scheduler injected
-    at bind time: ``JAX_COORDINATOR_ADDRESS`` ("host:port") is the TCP
-    rendezvous, ``JAX_NUM_PROCESSES`` the world size, ``JAX_PROCESS_ID``
-    the rank. NCCL on CUDA, gloo on the CPU; on CUDA the process takes card
-    ``cuda_index`` among the visible ones (``apply_chip_grant`` must have
-    run first). A no-op for a world of at most one process, and when a
-    default group already exists."""
+    """Boot ``torch.distributed`` from the environment. A per-card block
+    comes first: ``MASTER_ADDR``:``MASTER_PORT`` is the TCP rendezvous,
+    ``WORLD_SIZE`` the world size, ``RANK`` the rank, and the card the
+    ``LOCAL_RANK``-th visible one (the only one, under the launcher).
+    Otherwise the JAX block the scheduler injected at bind time:
+    ``JAX_COORDINATOR_ADDRESS`` ("host:port"), ``JAX_NUM_PROCESSES`` and
+    ``JAX_PROCESS_ID``, the card ``cuda_index`` among the visible ones
+    (``apply_chip_grant`` must have run first). NCCL on CUDA, gloo on the
+    CPU. A no-op for a world of at most one process, and when a default
+    group already exists."""
     e = os.environ if env is None else env
-    num = int(e.get("JAX_NUM_PROCESSES", "1"))
+    per_card = has_per_card_block(e)
+    num = int(e["WORLD_SIZE"] if per_card else e.get("JAX_NUM_PROCESSES", "1"))
     if num <= 1 or dist.is_initialized():
         return
     dev = resolve_device(device)
-    rank = int(e["JAX_PROCESS_ID"])
+    rank = process_rank(e)
     if dev.type == "cuda":
-        torch.cuda.set_device(cuda_index(e, rank, torch.cuda.device_count()))
+        visible = torch.cuda.device_count()
+        card = int(e.get("LOCAL_RANK", "0")) % visible if per_card else cuda_index(e, rank, visible)
+        torch.cuda.set_device(card)
+    address = (f"{e['MASTER_ADDR']}:{e['MASTER_PORT']}" if per_card
+               else e["JAX_COORDINATOR_ADDRESS"])
     dist.init_process_group(
         backend="nccl" if dev.type == "cuda" else "gloo",
-        init_method=f"tcp://{e['JAX_COORDINATOR_ADDRESS']}",
+        init_method=f"tcp://{address}",
         world_size=num,
         rank=rank,
     )

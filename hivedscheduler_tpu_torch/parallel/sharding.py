@@ -24,14 +24,18 @@ local tensors (``DTensor.to_local``):
   identity backward).
 - :func:`sharded_mha` runs the flash kernels on the rank's (batch, heads)
   block, the counterpart of the JAX ``shard_map``.
+- Sequence parallelism over ``sp``: :func:`sp_attention` picks Ulysses
+  (``parallel/ulysses.py``, :func:`all_to_all`) or ring attention
+  (``parallel/ring.py``, :func:`shift`). Parameters are replicated over
+  sp, so :func:`reduce_gradients` sums their gradients over it too.
 
 A mesh is *active* when a process group exists (:func:`is_active`): then
 the model runs this sharded code. A collective over an axis of one rank is
 the identity and is skipped, as GSPMD emits none, so a one-rank mesh runs
 the sharded code with no communication. Without a group (``mesh=None`` or
 the one-process mesh of ``make_mesh``) the model keeps its unsharded path.
-Sequence, pipeline and expert parallelism (sp, pp, ep > 1) are later
-slices of the port and raise.
+Pipeline and expert parallelism (pp, ep > 1) are later slices of the port
+and raise.
 """
 
 from __future__ import annotations
@@ -65,6 +69,15 @@ DEFAULT_RULES: Dict[str, Any] = {
 
 # The batch's axes: a gradient sums over them, the loss averages.
 BATCH_AXES = ("dp", "fsdp")
+
+# Sequence-parallel backends accepted by sp_attention and the model
+# config's sp_mode field (validated eagerly via validate_sp_mode).
+SP_MODES = ("auto", "ring", "ulysses")
+
+
+def validate_sp_mode(sp_mode: str) -> None:
+    if sp_mode not in SP_MODES:
+        raise ValueError(f"unknown sp_mode {sp_mode!r}; one of {'/'.join(SP_MODES)}")
 
 
 def _sizes(mesh: Any) -> Dict[str, int]:
@@ -125,18 +138,18 @@ def is_active(mesh: Any) -> bool:
 
 def check_supported(mesh: Any) -> None:
     """Raise for the axes whose parallelism is a later slice of the port."""
-    later = {"sp": "queue 1 item 9 (sequence parallelism)",
-             "pp": "queue 1 item 10 (pipeline parallelism)",
+    later = {"pp": "queue 1 item 10 (pipeline parallelism)",
              "ep": "queue 1 item 12 (expert parallelism)"}
     for axis, item in later.items():
         if axes_size(axis, mesh) > 1:
             raise NotImplementedError(f"{axis} > 1 needs ROADMAP {item}")
 
 
-# The mesh axes a parameter's placements name. sp, pp and ep are 1 on every
-# mesh the port runs (``check_supported``); DTensor's sharding propagation
-# also grows steeply with the mesh's rank (AdamW's first step on a 6-D mesh
-# took minutes on the CPU, on this 3-D one a fraction of a second).
+# The mesh axes a parameter's placements name: the rule table places no
+# parameter on sp (replicated there) and pp and ep are 1 on every mesh the
+# port runs (``check_supported``); DTensor's sharding propagation also
+# grows steeply with the mesh's rank (AdamW's first step on a 6-D mesh took
+# minutes on the CPU, on this 3-D one a fraction of a second).
 PARAM_AXES = ("dp", "fsdp", "tp")
 
 
@@ -206,6 +219,54 @@ def _all_reduce(x: torch.Tensor, mesh: Any, axis: str, op: str = "sum") -> torch
     return _wait(funcol.all_reduce(x.contiguous(), op, _group(mesh, axis)))
 
 
+def _shift(x: torch.Tensor, mesh: Any, axis: str, offset: int) -> torch.Tensor:
+    group = _group(mesh, axis)
+    n, r = axes_size(axis, mesh), mesh.get_local_rank(axis)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (r + offset) % n), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (r - offset) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+def _exchange(x: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=_group(mesh, axis))
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    """Send to rank + ``offset`` over ``axis`` and receive from rank -
+    ``offset`` (ring order); backward passes the gradient the other way."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, offset):
+        ctx.mesh, ctx.axis, ctx.offset = mesh, axis, offset
+        return _shift(x, mesh, axis, offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.mesh, ctx.axis, -ctx.offset), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all over ``axis`` of equal chunks along dim 0: chunk ``j``
+    goes to rank ``j``, and chunk ``i`` of the output came from rank ``i``.
+    It is its own transpose, so backward is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _exchange(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.mesh, ctx.axis), None, None
+
+
 class _Gather(torch.autograd.Function):
     """Cast a shard to ``dtype`` and all-gather it over ``axis`` along
     ``dim``; backward reduce-scatters the gradient in the shard's dtype (a
@@ -268,6 +329,19 @@ def reduce_from_tp(x: torch.Tensor, mesh: Any) -> torch.Tensor:
     return x if axes_size("tp", mesh) == 1 else _ReduceForward.apply(x, mesh, "tp")
 
 
+def shift(x: torch.Tensor, mesh: Any, axis: str = "sp", offset: int = 1) -> torch.Tensor:
+    """What rank - ``offset`` (mod the axis size) holds of ``x``, each rank
+    sending its own to rank + ``offset``; differentiable (ring attention's
+    K/V rotation)."""
+    return x if axes_size(axis, mesh) == 1 else _Shift.apply(x, mesh, axis, offset)
+
+
+def all_to_all(x: torch.Tensor, mesh: Any, axis: str = "sp") -> torch.Tensor:
+    """All-to-all over ``axis`` of ``x``'s equal chunks along dim 0 (dim 0
+    is the axis size); differentiable (Ulysses' head/sequence exchange)."""
+    return x if axes_size(axis, mesh) == 1 else _AllToAll.apply(x, mesh, axis)
+
+
 def fsdp_dim(logical: Sequence[Optional[str]], rules: Optional[Dict[str, Any]] = None) -> Optional[int]:
     """The tensor dim the rules shard over fsdp, or None."""
     for d, axes in enumerate(spec_for(logical, rules)):
@@ -279,9 +353,12 @@ def fsdp_dim(logical: Sequence[Optional[str]], rules: Optional[Dict[str, Any]] =
 def reduce_gradients(leaves: Sequence[DTensor], mesh: Any) -> None:
     """Finish the gradients after backward: sum each leaf's local gradient
     over the batch axes it is replicated on (a leaf sharded over fsdp was
-    reduce-scattered there by its gather), then divide by the batch's
-    shard count, so that each is the gradient of the global mean loss."""
+    reduce-scattered there by its gather) and over sp (each sp rank's loss
+    scores its own positions, and no parameter is placed on sp), then
+    divide by the batch's shard count, so that each is the gradient of the
+    global mean loss."""
     n = axes_size(BATCH_AXES, mesh)
+    sp = axes_size("sp", mesh)
     for p in leaves:
         if p.grad is None:
             continue
@@ -289,14 +366,18 @@ def reduce_gradients(leaves: Sequence[DTensor], mesh: Any) -> None:
         for axis, placement in zip(p.device_mesh.mesh_dim_names, p.placements):
             if axis in BATCH_AXES and not isinstance(placement, Shard) and axes_size(axis, mesh) > 1:
                 dist.all_reduce(g, group=_group(mesh, axis))
+        if sp > 1:
+            dist.all_reduce(g, group=_group(mesh, "sp"))
         if n > 1:
             g.div_(n)
 
 
 def mean_over_batch(loss: torch.Tensor, mesh: Any) -> torch.Tensor:
-    """The global mean of a per-rank mean loss (equal rows on every rank)."""
+    """The global mean loss from each rank's share: a mean over its rows
+    (equal rows on every batch shard), which its sp ranks' shares sum to
+    (``models/train.next_token_loss``)."""
     total = loss.detach()
-    for axis in BATCH_AXES:
+    for axis in BATCH_AXES + ("sp",):
         if axes_size(axis, mesh) > 1:
             total = _all_reduce(total, mesh, axis)
     n = axes_size(BATCH_AXES, mesh)
@@ -400,6 +481,55 @@ def sharded_mha(
     kh = rotary(k.reshape(b, s, -1, d))
     out = attention.mha(qh, kh, v.reshape(b, s, -1, d), causal).reshape(b, s, -1)
     return out if local else out.narrow(2, mesh.get_local_rank("tp") * width, width)
+
+
+def _ulysses_legal_or_raise(mesh: Any, h: int, hkv: int, s_global: int, sp_mode: str) -> bool:
+    """Whether Ulysses applies (``can_ulysses``, global sizes); an explicit
+    ``sp_mode="ulysses"`` on a mesh where it does not is a user error."""
+    from .ulysses import can_ulysses
+
+    legal = can_ulysses(mesh, h, hkv, s_global)
+    if sp_mode == "ulysses" and not legal:
+        raise ValueError(
+            f"sp_mode='ulysses' but heads/seq do not divide the mesh: heads={h} "
+            f"kv_heads={hkv} seq={s_global} mesh={_sizes(mesh)}")
+    return legal
+
+
+def sp_backend(mesh: Any, h: int, hkv: int, s_global: int, sp_mode: str, on_cuda: bool) -> str:
+    """The sequence-parallel backend ``sp_attention`` takes, "ulysses" or
+    "ring" (global head counts and length). "auto" takes Ulysses where it
+    is legal and the tensors are on the card, where its local attention
+    runs the flash kernels; else ring, whose local memory is bounded by
+    its query chunks (the JAX package's choice, whose kernels stand behind
+    ``pallas_wanted``). An explicit mode overrides that either way."""
+    validate_sp_mode(sp_mode)
+    legal = _ulysses_legal_or_raise(mesh, h, hkv, s_global, sp_mode)
+    if sp_mode == "ulysses" or (sp_mode == "auto" and legal and on_cuda):
+        return "ulysses"
+    return "ring"
+
+
+def sp_attention(
+    q: torch.Tensor,  # [B, S/sp, H/tp, D]: this rank's shard
+    k: torch.Tensor,  # [B, S/sp, Hkv/tp, D]
+    v: torch.Tensor,
+    mesh: Any,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    sp_mode: str = "auto",
+) -> torch.Tensor:
+    """Attention over the whole sequence, sharded over ``sp``; the one place
+    that picks the backend (:func:`sp_backend`). Returns this rank's shard
+    of the output."""
+    from . import ring, ulysses
+
+    sp, tp = axes_size("sp", mesh), axes_size("tp", mesh)
+    backend = sp_backend(mesh, q.shape[2] * tp, k.shape[2] * tp, q.shape[1] * sp, sp_mode,
+                         q.is_cuda)
+    if backend == "ulysses":
+        return ulysses.ulysses_attention(q, k, v, mesh, causal=causal, sm_scale=sm_scale)
+    return ring.ring_attention(q, k, v, mesh, causal=causal, sm_scale=sm_scale)
 
 
 def shard_batch(batch: torch.Tensor, mesh: Any) -> torch.Tensor:

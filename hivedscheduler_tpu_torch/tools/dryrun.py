@@ -10,12 +10,18 @@ multiple of dp x fsdp (identical rows keep the mean loss comparable across
 batch sizes). Each row's loss must lie within ``TOL`` of the one-process
 step on 4 rows; a row that diverges raises. Rows:
 
+- ``fsdp_sp_tp``: the JAX dryrun's main row, tp 2 and sp 2 where they
+  fit, the rest fsdp; under sp_mode "auto" its attention over sp is ring
+  attention on the CPU and Ulysses on the card;
+- ``ulysses-sp``: the same mesh with sp_mode "ulysses" (only where sp > 1
+  and ``ulysses.can_ulysses`` holds; tiny's 4/2 heads at tp 2 and sp 2
+  take the branch that expands K/V to the query heads);
 - ``fsdp_tp``: tp 2 when n is even, the rest fsdp (sp 1);
 - ``fsdp``: fsdp n;
 - ``dp``: dp 2, fsdp n / 2 (n even).
 
-The JAX dryrun's sequence, pipeline and expert rows (``ulysses-sp``,
-``pp``, ``pp-x-sp``, ``ep-moe``) are ROADMAP queue 1 items 9, 10 and 12.
+The JAX dryrun's pipeline and expert rows (``pp``, ``pp-x-sp``,
+``ep-moe``) are ROADMAP queue 1 items 10 and 12.
 """
 
 from __future__ import annotations
@@ -26,17 +32,24 @@ import os
 import socket
 import subprocess
 import sys
+import types
 from typing import Dict, List, Optional, Sequence
 
 TOL = 5e-3
 SEQ = 256
-ROWS = ("fsdp_tp", "fsdp", "dp")
-LATER_ROWS = {"sp": 9, "ulysses-sp": 9, "pp": 10, "pp-x-sp": 10, "ep-moe": 12}
+ROWS = ("fsdp_sp_tp", "ulysses-sp", "fsdp_tp", "fsdp", "dp")
+LATER_ROWS = {"pp": 10, "pp-x-sp": 10, "ep-moe": 12}
+# The rows that force a sequence-parallel backend.
+SP_MODE = {"ulysses-sp": "ulysses"}
 
 
 def layouts(n: int, rows: Sequence[str] = ROWS) -> Dict[str, Dict[str, int]]:
     """Each asked-for row's mesh sizes for an n-process gang; rows that do
     not fit n are left out."""
+    from ..models import transformer
+    from ..parallel.mesh import MESH_AXES
+    from ..parallel.ulysses import can_ulysses
+
     for row in rows:
         if row in LATER_ROWS:
             raise NotImplementedError(
@@ -44,7 +57,14 @@ def layouts(n: int, rows: Sequence[str] = ROWS) -> Dict[str, Dict[str, int]]:
         if row not in ROWS:
             raise ValueError(f"unknown dryrun row {row!r}; one of {ROWS}")
     tp = 2 if n % 2 == 0 else 1
-    table = {"fsdp_tp": dict(fsdp=n // tp, tp=tp), "fsdp": dict(fsdp=n)}
+    sp = 2 if n % (tp * 2) == 0 else 1
+    main = dict(fsdp=n // (tp * sp), sp=sp, tp=tp)
+    table = {"fsdp_sp_tp": main, "fsdp_tp": dict(fsdp=n // tp, tp=tp), "fsdp": dict(fsdp=n)}
+    config = transformer.tiny()
+    sizes = types.SimpleNamespace(mesh_dim_names=MESH_AXES,  # all that can_ulysses reads
+                                  shape=tuple(main.get(a, 1) for a in MESH_AXES))
+    if sp > 1 and can_ulysses(sizes, config.n_heads, config.n_kv_heads, SEQ):
+        table["ulysses-sp"] = main
     if n % 2 == 0:
         table["dp"] = dict(dp=2, fsdp=n // 2)
     return {r: table[r] for r in rows if r in table}
@@ -56,12 +76,14 @@ def _tokens(rows: int):
     return torch.zeros((rows, SEQ), dtype=torch.long)
 
 
-def _params(device: str, mesh=None):
+def _params(device: str, mesh=None, sp_mode: str = "auto"):
+    import dataclasses
+
     import torch
 
     from ..models import train, transformer
 
-    config = transformer.tiny()
+    config = dataclasses.replace(transformer.tiny(), sp_mode=sp_mode)
     gen = torch.Generator(device=device).manual_seed(0)
     if mesh is None:
         params = transformer.init(config, gen, device, torch.float32)
@@ -83,6 +105,7 @@ def _worker(rank: int, world: int, port: int, device: str, rows: Sequence[str]) 
     import torch.distributed as dist
 
     from ..models import train
+    from ..ops.attention import kernel_launches
     from ..parallel import mesh as pmesh
     from ..parallel import sharding
 
@@ -92,18 +115,20 @@ def _worker(rank: int, world: int, port: int, device: str, rows: Sequence[str]) 
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     dist.init_process_group("nccl" if device == "cuda" else "gloo",
                             init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
-    losses = {}
+    losses, launches = {}, {}
     try:
         for row, sizes in layouts(world, rows).items():
             mesh = pmesh.make_mesh(pmesh.MeshConfig(**sizes), device)
-            config, params, optimizer = _params(device, mesh)
+            config, params, optimizer = _params(device, mesh, SP_MODE.get(row, "auto"))
             dpf = sizes.get("dp", 1) * sizes.get("fsdp", 1)
             tokens = sharding.shard_batch(_tokens(-(-4 // dpf) * dpf), mesh)
             step = train.make_train_step(config, mesh, optimizer)
+            before = kernel_launches()
             losses[row] = float(step(params, tokens))
+            launches[row] = {k: v - before[k] for k, v in kernel_launches().items()}
     finally:
         dist.destroy_process_group()
-    print(json.dumps({"rank": rank, "losses": losses}), flush=True)
+    print(json.dumps({"rank": rank, "losses": losses, "launches": launches}), flush=True)
 
 
 def _free_port() -> int:
@@ -115,7 +140,8 @@ def _free_port() -> int:
 def dryrun(n: int, rows: Sequence[str] = ROWS, device: str = "cpu",
            timeout: float = 600) -> Dict[str, object]:
     """Run the rows on an n-process gang and hold each rank's loss to the
-    one-process step's; returns {"reference": loss, "rows": {row: loss}}.
+    one-process step's; returns {"reference": loss, "rows": {row: loss},
+    "launches": {row: each rank's kernel launches}} (CUDA launches only).
     Every process it starts is ended before it returns."""
     wanted = layouts(n, rows)
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -149,7 +175,8 @@ def dryrun(n: int, rows: Sequence[str] = ROWS, device: str = "cpu",
     print(f"dryrun: {n} processes on {device}, one-process loss={ref:.4f}, all rows within "
           f"{TOL}: " + ", ".join(f"{row} {wanted[row]} loss={v:.4f}" for row, v in losses.items()),
           flush=True)
-    return {"reference": ref, "rows": losses}
+    return {"reference": ref, "rows": losses,
+            "launches": {row: [o["launches"][row] for o in outs] for row in wanted}}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:

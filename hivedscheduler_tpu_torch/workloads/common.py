@@ -17,7 +17,7 @@ from typing import Dict
 import numpy as np
 
 from .. import Device
-from ..parallel.mesh import apply_chip_grant, initialize_from_env
+from ..parallel.mesh import apply_chip_grant, initialize_from_env, process_rank
 
 ENV_BLOCK_VAR = "HIVED_TPU_ENV"
 
@@ -50,11 +50,12 @@ def lift_env_block() -> None:
 
 def bootstrap_distributed(device: Device = None) -> int:
     """``lift_env_block``, then start the process group from the
-    environment (a no-op for one process); returns this worker's rank (0
-    for a single-process job)."""
+    environment (a no-op for one process); returns this worker's rank: the
+    per-card block's ``RANK`` where the launcher set one, else the JAX
+    block's ``JAX_PROCESS_ID`` (0 for a single-process job)."""
     lift_env_block()
     initialize_from_env(device=device)
-    return int(os.environ.get("JAX_PROCESS_ID", "0"))
+    return process_rank()
 
 
 def synthetic_tokens(

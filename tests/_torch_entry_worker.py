@@ -1,21 +1,53 @@
 """Worker process for the port's multi-process entry-point tests (gloo).
 
     python _torch_entry_worker.py train|serve <rank> <world> <port> <arg>...
+    python -m tests._torch_entry_worker launched <arg>...
+    python -m tests._torch_entry_worker fail-or-hang
 
-Writes the gang's env block (the keys the scheduler emits, coordinator on
-loopback) into ``HIVED_TPU_ENV`` and runs ``train.main`` or ``serve.main``
-on the CPU with the remaining arguments. Prints one JSON line: the losses
-of each step, or each request's tokens (this rank's rows).
+``train``/``serve`` write the gang's env block (the keys the scheduler
+emits, coordinator on loopback) into ``HIVED_TPU_ENV`` and run
+``train.main`` or ``serve.main`` on the CPU with the remaining arguments.
+``launched`` runs ``train.main`` in the environment the pod's launcher
+(``workloads/launch.py``) gave it. Each prints one JSON line: the rank, the
+losses of each step or each request's tokens (this rank's rows), the world
+size. ``fail-or-hang`` exits 3 as rank 1 and sleeps as any other rank.
 """
 
 import json
 import os
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def launched(argv) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)  # as the train/serve gangs: the same sums, the same losses
+
+    from hivedscheduler_tpu_torch import train
+
+    try:
+        out = {"losses": [r["loss"] for r in train.main(argv + ["--device", "cpu"]).records]}
+        out["rank"], out["world"] = dist.get_rank(), dist.get_world_size()
+        out["env"] = {k: os.environ.get(k) for k in
+                      ("RANK", "LOCAL_RANK", "WORLD_SIZE", "CUDA_VISIBLE_DEVICES", "JAX_NUM_PROCESSES")}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
 def main() -> None:
+    if sys.argv[1] == "launched":
+        return launched(sys.argv[2:])
+    if sys.argv[1] == "fail-or-hang":
+        if os.environ["RANK"] == "1":
+            sys.exit(3)
+        time.sleep(600)
+        return None
     mode, rank, world, port, argv = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5:]
     block = {"TPU_WORKER_ID": rank, "JAX_PROCESS_ID": rank, "JAX_NUM_PROCESSES": world,
              "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}"}

@@ -186,11 +186,27 @@ _TP_HEADS = {2: (16, 4), 4: (8, 2), 8: (4, 1)}
 @pytest.mark.cuda
 @pytest.mark.parametrize("tp", sorted(_TP_HEADS))
 def test_cuda_kernels_at_the_per_rank_tp_shapes(cuda_device, tp):
-    h, hkv = _TP_HEADS[tp]
-    gen = torch.Generator(device=cuda_device).manual_seed(tp)
-    q, do = (torch.randn(1, 8192, h, 128, device=cuda_device, dtype=torch.bfloat16,
+    _check_rank_shape(cuda_device, *_TP_HEADS[tp], 8192, tp)
+
+
+# Ulysses' per-rank attention in the longctx twin's meshes (tp 4, the rest
+# sp: 8, 16 and 32 cards), at a length whose plain version fits whole.
+_SP_HEADS = {8: (4, 1), 16: (2, 2), 32: (1, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", sorted(_SP_HEADS))
+def test_cuda_kernels_at_the_ulysses_per_rank_shapes(cuda_device, cards):
+    _check_rank_shape(cuda_device, *_SP_HEADS[cards], 16384, cards)
+
+
+def _check_rank_shape(cuda_device, h, hkv, s, seed):
+    """All three kernels at B1 S x H/Hkv, D 128, causal bf16, against their
+    plain versions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    q, do = (torch.randn(1, s, h, 128, device=cuda_device, dtype=torch.bfloat16,
                          generator=gen) for _ in range(2))
-    k, v = (torch.randn(1, 8192, hkv, 128, device=cuda_device, dtype=torch.bfloat16,
+    k, v = (torch.randn(1, s, hkv, 128, device=cuda_device, dtype=torch.bfloat16,
                         generator=gen) for _ in range(2))
     out, lse = TA.flash_attention(q, k, v, True)
     ref, ref_lse = TA.flash_attention_reference(q, k, v, True)

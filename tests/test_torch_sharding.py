@@ -231,10 +231,14 @@ def test_shard_batch_takes_this_ranks_rows():
         sharding.shard_batch(batch[:6], mesh)
 
 
-@pytest.mark.parametrize("axis,item", [("sp", 9), ("pp", 10), ("ep", 12)])
+@pytest.mark.parametrize("axis,item", [("pp", 10), ("ep", 12)])
 def test_later_axes_raise(axis, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         sharding.check_supported(_mesh(**{axis: 2}))
+
+
+def test_sequence_parallelism_is_supported():
+    sharding.check_supported(_mesh(sp=2, tp=2))  # no longer raises
 
 
 def test_inactive_meshes_keep_the_unsharded_path():
@@ -244,12 +248,11 @@ def test_inactive_meshes_keep_the_unsharded_path():
 
 def test_dryrun_four_processes():
     result = dryrun.dryrun(4, timeout=300)
-    assert sorted(result["rows"]) == ["dp", "fsdp", "fsdp_tp"]
+    assert sorted(result["rows"]) == ["dp", "fsdp", "fsdp_sp_tp", "fsdp_tp", "ulysses-sp"]
     assert all(abs(v - result["reference"]) <= dryrun.TOL for v in result["rows"].values())
 
 
-@pytest.mark.parametrize("row,item", [("ulysses-sp", 9), ("pp", 10), ("pp-x-sp", 10),
-                                      ("ep-moe", 12)])
+@pytest.mark.parametrize("row,item", [("pp", 10), ("pp-x-sp", 10), ("ep-moe", 12)])
 def test_dryrun_names_the_item_of_a_later_row(row, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         dryrun.layouts(4, [row])
