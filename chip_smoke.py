@@ -31,7 +31,11 @@ neither the kernels line nor the last line, since no main path ran):
              S131072, the twin's default length, beside SDPA. The plain
              versions run one (batch row, KV head) block at a time, which
              is what the card holds at S32768, and one query head at a
-             time where a group's f32 scores would pass 8 GiB.
+             time where a group's f32 scores would pass 8 GiB. BERT-large's
+             attention (non-causal, head_dim 64, S512: B8 H16 as one batch
+             shard of its twin, B8 H8 as its tp 2 rank) and one microbatch
+             of the pipeline twin's stage on four cards (B2 S4096 H16/Hkv4,
+             causal) are held and timed with all three kernels too.
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
              tokens through the serving entry point. Launch counts are set
@@ -93,22 +97,42 @@ neither the kernels line nor the last line, since no main path ran):
              launching the flash kernel. With two cards or more, a 2-rank
              (4 with four cards) NCCL gang of the tiny model
              (``tools/dryrun.py``, every row that fits: at 4 ranks the
-             sequence rows ``fsdp_sp_tp`` and ``ulysses-sp`` too) must come
-             within 5e-3 of the one-process loss; with one, the summary
-             records ``"nccl_ranks": 1``.
+             sequence rows ``fsdp_sp_tp`` and ``ulysses-sp`` and the
+             pipeline rows ``pp`` and ``pp-x-sp`` too) must come within
+             5e-3 of the one-process loss, each rank launching each kernel
+             as often as its row asks (once a layer; on a pipeline stage
+             once a layer of the stage a microbatch); with four cards the
+             longctx twin (tp 4) and the pipeline twin (pp 2 x tp 2,
+             Llama-3-8B's widths at 8 layers, batch 8 x 4096 in 4
+             microbatches, 3 steps) run through the pod's launcher on a
+             four-card bind info, their losses within GANG_TOL of the same
+             model, seeds and batches on one card. With one card, the
+             summary records ``"nccl_ranks": 1``.
 9. longctx - the long-context twin (``workloads/train_longctx.py``) at
              Llama-3-8B's full width, depth cut to 2 layers, 3 steps of
              one 32768-token row from the twin's seeds (on one card sp is 1, so the
              kernels run at B1 S32768 H32). Every step must launch each
              kernel once a layer; losses finite and falling; step ms and
              tokens/s printed.
+10. bert   - (a) a small f32 BERT (2 layers, d 128, 4 heads of 32, S256,
+             non-causal: it reaches the kernels, which BERT tiny's S128
+             and head_dim 16 do not) takes 2 AdamW steps of the BERT twin's
+             step (``workloads/train_bert.py``) on the card and on the CPU
+             from the same weights, held within TRAIN_TOL; (b) BERT-large at
+             its published size (24 layers, d 1024, 16 heads, vocab 30522,
+             S512), f32 masters, bf16 compute, full remat, batch 8 x 512
+             with 15% masked, 2 warm-up and 4 timed steps on one fixed
+             batch: every step launches the forward kernel twice a layer
+             (48) and each backward kernel once (24), losses finite and
+             falling; step ms, tokens/s and peak memory printed.
 
 Each phase logs its seconds. The lines before the last are nvidia-smi's
 name and power limit, then one JSON object with each kernel's numbers (its
-``launches_by_path``: serve, train, workloads, perf, sharded, longctx); the
-last line is ``{"ok": true, "device": {...}}``. Each kernel's ``tp_shapes``
-holds its numbers at phase 3's per-rank tp shapes, ``sp_shapes`` at the
-Ulysses per-rank shapes. In the kernels line, the forward's
+``launches_by_path``: serve, train, workloads, perf, sharded, longctx,
+bert); the last line is ``{"ok": true, "device": {...}}``. Each kernel's
+``tp_shapes`` holds its numbers at phase 3's per-rank tp shapes,
+``sp_shapes`` at the Ulysses per-rank shapes, ``bert_shapes`` at BERT's
+and ``pp_shapes`` at the pipeline stage's. In the kernels line, the forward's
 ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` and
 ``tflops`` are taken at the serving shape and ``ms_train``,
 ``plain_ms_train``, ``bound_ms_train``, ``bound_by_train``,
@@ -192,6 +216,14 @@ SP_SHAPES = {8: (2, 4, 1), 16: (4, 2, 2), 32: (8, 1, 1)}
 # head) cannot exist.
 SP_CHECK_SEQ, SP_TIME_SEQ = 32768, 131072
 SHARDED_SERVE = {"batch": 4, "prompt": 2048, "new_tokens": 8}
+# Phase 3's attention at the shapes this slice's paths give the kernels:
+# BERT-large (non-causal, 16 heads of 64, S512) as one batch shard of the
+# twin holds it (B8) and as its tp 2 rank (H8), and one microbatch of the
+# pipeline twin's stage on four cards (pp 2 x tp 2, batch 8 in M 4: B2,
+# S4096, Llama-3-8B's heads over tp 2). name -> (B, S, H, Hkv, D, causal).
+BERT_SHAPES = {"bert_b8_h16": (8, 512, 16, 16, 64, False),
+               "bert_tp2_b8_h8": (8, 512, 8, 8, 64, False)}
+PP_SHAPES = {"pp2_tp2_stage_mb": (2, 4096, 16, 4, 128, True)}
 # The env block the scheduler writes for a one-pod gang (pod_tpu_env's keys).
 POD_ENV = {"TPU_VISIBLE_CHIPS": "0", "TPU_WORKER_ID": "0", "JAX_PROCESS_ID": "0",
            "TPU_WORKER_HOSTNAMES": "localhost", "JAX_COORDINATOR_ADDRESS": "localhost:8476",
@@ -207,6 +239,18 @@ LONGCTX = {"model": "llama8b", "layers": 2, "seq": 32768, "steps": 3}
 # relative each), which moves a mean over 32767 targets near 12 by some
 # 1e-3.
 GANG_TOL = 1e-2
+# Phase 10: (a) a small f32 BERT that reaches the kernels (S256, head_dim
+# 32), two steps on the card and the CPU; (b) BERT-large at its published
+# size (24 layers, d 1024, 16 heads, vocab 30522, S512), batch 8 x 512 (one
+# batch shard of the twin), 2 warm-up and 4 timed steps.
+BERT_SMALL = {"config": dict(vocab_size=512, d_model=128, n_layers=2, n_heads=4, d_ff=256,
+                             max_seq_len=256), "batch": 2, "steps": 2}
+BERT_LARGE = {"batch": 8, "warmup": 2, "timed": 4}
+# The pipeline twin on four cards (pp 2 x tp 2): Llama-3-8B's widths at
+# phase 5's depth, batch 8 x 4096 in 4 microbatches, against the same
+# model, seeds and batches on one card.
+PIPELINE = {"model": "llama8b", "layers": 8, "batch": 8, "seq": 4096, "microbatches": 4,
+            "steps": 3}
 
 
 def log(phase: str, **fields) -> None:
@@ -505,9 +549,11 @@ def phase_kernels_bwd(seed: int) -> dict:
     ] + [(f"bwd_tp{tp}", TRAIN["batch"], TRAIN["seq"], h, hkv, 128, True, torch.bfloat16)
          for tp, (h, hkv) in TP_HEADS.items()
          ] + [(f"bwd_sp_cards{cards}", 1, SP_CHECK_SEQ, h, hkv, 128, True, torch.bfloat16)
-              for cards, (_, h, hkv) in SP_SHAPES.items()]
+              for cards, (_, h, hkv) in SP_SHAPES.items()
+              ] + [(f"bwd_{label}", b, s, h, hkv, d, causal, torch.bfloat16)
+                   for label, (b, s, h, hkv, d, causal) in {**BERT_SHAPES, **PP_SHAPES}.items()]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    main = {"tp_shapes": [], "sp_shapes": []}
+    main = {"tp_shapes": [], "sp_shapes": [], "bert_shapes": [], "pp_shapes": []}
     for name, b, s, h, hkv, d, causal, dtype in cases:
         q = torch.randn(b, s, h, d, device="cuda", dtype=dtype, generator=gen)
         k = torch.randn(b, s, hkv, d, device="cuda", dtype=dtype, generator=gen)
@@ -558,14 +604,18 @@ def phase_kernels_bwd(seed: int) -> dict:
             main["dkdv_max_abs_err"] = max(fields["dk_max_abs_err"], fields["dv_max_abs_err"])
             main["dq_max_abs_err"] = fields["dq_max_abs_err"]
             main.update(time_bwd(q, k, v, out, do, lse, delta, causal))
-        elif name.startswith("bwd_tp"):
-            # One rank of a tp gang: the forward held and all three timed.
+        elif name.startswith(("bwd_tp", "bwd_bert", "bwd_pp")):
+            # One rank of a tp gang, BERT's attention, a pipeline stage's
+            # microbatch: the forward held and all three timed.
             fwd = check_fwd(name.replace("bwd_", "fwd_"), q, k, v, causal, out, lse)
             torch.cuda.empty_cache()
             fwd.update(time_fwd(q, k, v, causal))
             log("kernels", **fwd)
-            main["tp_shapes"].append({
-                "tp": int(name[len("bwd_tp"):]), "shape": [b, s, h, hkv, d], "fwd": fwd,
+            label = name[len("bwd_"):]
+            group = next(g for g in ("tp", "bert", "pp") if label.startswith(g))
+            row = {"tp": int(label[2:])} if group == "tp" else {"label": label}
+            main[f"{group}_shapes"].append({
+                **row, "shape": [b, s, h, hkv, d], "causal": causal, "fwd": fwd,
                 "dkdv_max_abs_err": max(fields["dk_max_abs_err"], fields["dv_max_abs_err"]),
                 "dq_max_abs_err": fields["dq_max_abs_err"],
                 **time_bwd(q, k, v, out, do, lse, delta, causal)})
@@ -1220,40 +1270,10 @@ _TWIN_STEP = re.compile(
     r"step (\d+) loss ([-\d.]+) \(([\d.]+) ms, \d+ tok/s, launches (\{[^}]*\})\)")
 
 
-def phase_gang() -> int:
-    """Gangs across cards, where the machine has two or more (see the
-    module docstring, phase 8): every dryrun row that fits as an NCCL gang
-    of 2 ranks, or 4 with four cards (the sequence rows then launch the
-    kernels on every rank); with four cards, also the longctx twin as the
-    scheduler would start it on a pod granted four cards: the pod's
-    launcher on a one-pod, four-card bind info, one process per card,
-    whose losses must come within GANG_TOL of the twin's on one card.
-    Returns the ranks of the gang (1, and nothing run, on one card)."""
-    import ast
-
-    import torch
-
-    from hivedscheduler_tpu_torch.tools import dryrun
-    from hivedscheduler_tpu_torch.workloads import train_longctx
-
-    count = torch.cuda.device_count()
-    if count < 2:
-        return 1
-    ranks = 4 if count >= 4 else 2
-    result = dryrun.dryrun(ranks, device="cuda")
-    log("gang", step="dryrun", ranks=ranks, **result)
-    layers = train_longctx.MODELS["tiny"]().n_layers
-    for row, per_rank in result["launches"].items():
-        # Every row attends through the kernels on every rank (the sequence
-        # rows through Ulysses' full-sequence call), once a layer.
-        if any(set(n.values()) != {layers} for n in per_rank):
-            raise AssertionError(f"dryrun row {row}: kernel launches {per_rank}")
-    if ranks < 4:
-        return ranks
-    argv = ["--model", LONGCTX["model"], "--layers", str(LONGCTX["layers"]),
-            "--seq", str(LONGCTX["seq"]), "--steps", str(LONGCTX["steps"])]
-    one = train_longctx.main(argv)  # this process, card 0
-    torch.cuda.empty_cache()
+def launch_gang(module: str, argv: list, ranks: int) -> list:
+    """``module`` started by the pod's launcher on a one-pod bind info of
+    ``ranks`` cards, one process per card; returns each step line's (step,
+    loss, ms, launches) from every rank."""
     workdir = tempfile.mkdtemp(prefix="chip_smoke_gang_")
     try:
         bind_info = os.path.join(workdir, "pod-bind-info.json")
@@ -1265,39 +1285,101 @@ def phase_gang() -> int:
         proc = subprocess.run(
             [sys.executable, "-m", "hivedscheduler_tpu_torch.workloads.launch",
              "--bind-info", bind_info, "--master-port", str(_free_port()), "--timeout", "600",
-             "--", "hivedscheduler_tpu_torch.workloads.train_longctx", *argv],
+             "--", module, *argv],
             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, text=True,
             timeout=660)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(proc.stdout, end="", flush=True)
     if proc.returncode != 0:
-        raise AssertionError(f"the launched longctx gang exited {proc.returncode}")
-    steps = [m.groups() for m in _TWIN_STEP.finditer(proc.stdout)]
-    if len(steps) != ranks * LONGCTX["steps"]:
-        raise AssertionError(f"{len(steps)} step lines from {ranks} ranks")
+        raise AssertionError(f"the launched {module} gang exited {proc.returncode}")
+    return [m.groups() for m in _TWIN_STEP.finditer(proc.stdout)]
+
+
+def check_gang(name: str, one: list, lines: list, ranks: int, launches: int, **fields) -> None:
+    """Hold a launched gang's step lines to the one-card run ``one``: every
+    rank reports the same loss, within GANG_TOL of one card's, and launched
+    each kernel ``launches`` times a step; logs the step times."""
+    import ast
+
+    if len(lines) != ranks * len(one):
+        raise AssertionError(f"{name}: {len(lines)} step lines from {ranks} ranks")
     losses, step_ms = [], []
     for i, r in enumerate(one):
-        mine = [st for st in steps if int(st[0]) == i]
+        mine = [st for st in lines if int(st[0]) == i]
         got = {float(st[1]) for st in mine}
         if len(got) != 1:
-            raise AssertionError(f"step {i}: the ranks report different losses {got}")
+            raise AssertionError(f"{name} step {i}: the ranks report different losses {got}")
         losses.append(got.pop())
         if abs(losses[-1] - r["loss"]) > GANG_TOL:
-            raise AssertionError(f"step {i}: gang loss {losses[-1]} vs one card {r['loss']}")
+            raise AssertionError(f"{name} step {i}: gang loss {losses[-1]} vs one card {r['loss']}")
         step_ms.append(max(float(st[2]) for st in mine))
         for st in mine:
-            # tp 4 keeps whole GQA groups on each rank: the kernels run once
-            # a layer on every rank.
-            if set(ast.literal_eval(st[3]).values()) != {LONGCTX["layers"]}:
-                raise AssertionError(f"step {i}: a rank launched {st[3]}")
+            if set(ast.literal_eval(st[3]).values()) != {launches}:
+                raise AssertionError(f"{name} step {i}: a rank launched {st[3]}, not {launches}")
     mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
     one_ms = sum(r["step_ms"] for r in one[1:]) / len(one[1:])
+    log("gang", step=name, ranks=ranks, losses=losses, losses_one_card=[r["loss"] for r in one],
+        tol=GANG_TOL, step_ms=step_ms, step_ms_mean=mean_ms, one_card_step_ms_mean=one_ms,
+        speedup=one_ms / mean_ms, launches_per_rank_step=launches, **fields)
+
+
+def phase_gang() -> int:
+    """Gangs across cards, where the machine has two or more (see the
+    module docstring, phase 8): every dryrun row that fits as an NCCL gang
+    of 2 ranks, or 4 with four cards (the sequence rows then launch the
+    kernels on every rank, and the pipeline rows on every stage); with four
+    cards, also the longctx and pipeline twins as the scheduler would start
+    them on a pod granted four cards: the pod's launcher on a one-pod,
+    four-card bind info, one process per card, whose losses must come
+    within GANG_TOL of the same model, seeds and batches on one card.
+    Returns the ranks of the gang (1, and nothing run, on one card)."""
+    import torch
+
+    from hivedscheduler_tpu_torch.tools import dryrun
+    from hivedscheduler_tpu_torch.workloads import train_longctx, train_pp
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        return 1
+    ranks = 4 if count >= 4 else 2
+    result = dryrun.dryrun(ranks, device="cuda")
+    log("gang", step="dryrun", ranks=ranks, **result)
+    for row, per_rank in result["launches"].items():
+        # Every row attends through the kernels on every rank (the sequence
+        # rows through Ulysses' full-sequence call): once a layer, and on a
+        # pipeline stage once a layer of the stage a microbatch.
+        if any(set(n.values()) != {result["expected"][row]} for n in per_rank):
+            raise AssertionError(f"dryrun row {row}: kernel launches {per_rank}, "
+                                 f"not {result['expected'][row]} each")
+    if ranks < 4:
+        return ranks
+    argv = ["--model", LONGCTX["model"], "--layers", str(LONGCTX["layers"]),
+            "--seq", str(LONGCTX["seq"]), "--steps", str(LONGCTX["steps"])]
+    one = train_longctx.main(argv)  # this process, card 0
+    torch.cuda.empty_cache()
+    steps = launch_gang("hivedscheduler_tpu_torch.workloads.train_longctx", argv, ranks)
     mesh = train_longctx.mesh_config(ranks, train_longctx.MODELS[LONGCTX["model"]]().n_kv_heads)
-    log("gang", step="longctx", ranks=ranks, mesh=dataclasses.asdict(mesh), losses=losses,
-        losses_one_card=[r["loss"] for r in one], tol=GANG_TOL, step_ms=step_ms,
-        step_ms_mean=mean_ms, tokens_per_s=LONGCTX["seq"] / (mean_ms * 1e-3),
-        one_card_step_ms_mean=one_ms, speedup=one_ms / mean_ms)
+    # tp 4 keeps whole GQA groups on each rank: the kernels run once a layer.
+    check_gang("longctx", one, steps, ranks, LONGCTX["layers"], mesh=dataclasses.asdict(mesh),
+               tokens_per_s_one_card=LONGCTX["seq"] / (one[-1]["step_ms"] * 1e-3))
+
+    # The pipeline twin: the one-card reference through its ``run`` on an
+    # inactive mesh (the twin itself refuses an odd card count).
+    pl = PIPELINE
+    base = train_pp.MODELS[pl["model"]]()
+    config = dataclasses.replace(base, max_seq_len=pl["seq"], n_layers=pl["layers"], remat=True,
+                        remat_policy="flash", pp_microbatches=pl["microbatches"])
+    one = train_pp.run(config, None, torch.device("cuda"), pl["steps"], pl["batch"], pl["seq"])
+    torch.cuda.empty_cache()
+    argv = ["--model", pl["model"], "--layers", str(pl["layers"]), "--batch", str(pl["batch"]),
+            "--seq", str(pl["seq"]), "--microbatches", str(pl["microbatches"]),
+            "--steps", str(pl["steps"])]
+    steps = launch_gang("hivedscheduler_tpu_torch.workloads.train_pp", argv, ranks)
+    mesh = train_pp.mesh_config(ranks, 1, base.n_kv_heads)
+    # Each stage holds layers / pp layers and runs each once a microbatch.
+    check_gang("pipeline", one, steps, ranks, pl["layers"] // mesh.pp * pl["microbatches"],
+               mesh=dataclasses.asdict(mesh), **pl)
     return ranks
 
 
@@ -1334,6 +1416,109 @@ def phase_longctx() -> dict:
     return launches
 
 
+def phase_bert(seed: int, profile: bool) -> dict:
+    """BERT (see the module docstring, phase 10): (a) a small f32 BERT on the
+    card against the CPU; (b) BERT-large at its published size through the
+    twin's step, with ``profile`` its device time by kernel over one more
+    step. Returns each kernel's launches in (b)."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import bert, convert, perf, transformer
+    from hivedscheduler_tpu_torch.ops import attention as A
+    from hivedscheduler_tpu_torch.workloads import train_bert
+
+    # (a) Small enough to run on the CPU, large enough to reach the kernels
+    # (S >= 256, head_dim 32): two steps from the same weights on each side.
+    config = bert.BertConfig(**BERT_SMALL["config"], dtype=torch.float32)
+    cpu_params = bert.init(config, torch.Generator().manual_seed(seed), "cpu")
+    card_params = convert.params_from_jax(convert.params_to_numpy(cpu_params), device="cuda")
+    tokens, targets = train_bert.masked_batch(np.random.default_rng(seed + 5), BERT_SMALL["batch"],
+                                              config.max_seq_len, config.vocab_size)
+
+    def run(params, device):
+        opt = train_bert.make_optimizer(params)
+        losses, grads, launches = [], None, []
+        for _ in range(BERT_SMALL["steps"]):
+            before = A.kernel_launches()
+            losses.append(float(train_bert.train_step(params, opt, tokens.to(device),
+                                                      targets.to(device), config)))
+            after = A.kernel_launches()
+            launches.append({k: after[k] - before[k] for k in after})
+            if grads is None:
+                grads = [t.grad.detach().cpu().clone() for t in transformer.leaves(params)]
+        return losses, grads, launches
+
+    cpu_losses, cpu_grads, _ = run(cpu_params, "cpu")
+    card_losses, card_grads, card_launches = run(card_params, "cuda")
+    loss_gap = max(abs(a - c) for a, c in zip(cpu_losses, card_losses))
+    grad_rel = max(((a - c).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+                   for a, c in zip(cpu_grads, card_grads))
+    diffs = [(a.detach() - c.detach().cpu()).abs()
+             for a, c in zip(transformer.leaves(cpu_params), transformer.leaves(card_params))]
+    param_mean = sum(d.sum().item() for d in diffs) / sum(d.numel() for d in diffs)
+    fields = {"losses_cpu": cpu_losses, "losses_card": card_losses, "loss_gap": loss_gap,
+              "grad_max_rel": grad_rel, "param_mean_abs_diff": param_mean, "tol": TRAIN_TOL,
+              "launches_per_step": card_launches}
+    # Full remat: the forward kernel runs twice a layer, each backward once.
+    want = {"flash_fwd": 2 * config.n_layers, "flash_bwd_dkdv": config.n_layers,
+            "flash_bwd_dq": config.n_layers}
+    if any(n != want for n in card_launches):
+        raise AssertionError(f"small BERT step launches {card_launches}, not {want}")
+    if (loss_gap > TRAIN_TOL["loss"] or grad_rel > TRAIN_TOL["grad_max_rel"]
+            or param_mean > TRAIN_TOL["param_mean"]):
+        raise AssertionError(f"BERT on the card disagrees with the CPU: {fields}")
+    log("bert", step="small_card_vs_cpu", **fields)
+    del card_params, cpu_params
+
+    # (b) BERT-large, nothing cut, on one fixed masked batch.
+    t0 = time.perf_counter()
+    config = bert.bert_large()
+    params = bert.init(config, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    optimizer = train_bert.make_optimizer(params)
+    tokens, targets = train_bert.masked_batch(np.random.default_rng(seed + 6), BERT_LARGE["batch"],
+                                              train_bert.SEQ, config.vocab_size)
+    tokens, targets = tokens.cuda(), targets.cuda()
+    torch.cuda.synchronize()
+    log("bert", step="init", n_layers=config.n_layers, d_model=config.d_model,
+        n_params=perf.n_params(params), seconds=time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    recs = []
+    for i in range(BERT_LARGE["warmup"] + BERT_LARGE["timed"]):
+        before = A.kernel_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = float(train_bert.train_step(params, optimizer, tokens, targets, config))
+        step_ms = (time.perf_counter() - t1) * 1e3
+        after = A.kernel_launches()
+        recs.append({"loss": loss, "step_ms": step_ms,
+                     "launches": {k: after[k] - before[k] for k in after}})
+        log("bert", step=f"step_{i}", **recs[-1])
+    launches = A.kernel_launches()
+    losses = [r["loss"] for r in recs]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite BERT loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"BERT loss did not fall on a fixed batch: {losses}")
+    want = {"flash_fwd": 2 * config.n_layers, "flash_bwd_dkdv": config.n_layers,
+            "flash_bwd_dq": config.n_layers}
+    for r in recs:
+        if r["launches"] != want:
+            raise AssertionError(f"BERT-large step launched {r['launches']}, not {want}")
+    timed = [r["step_ms"] for r in recs[BERT_LARGE["warmup"]:]]
+    step_ms = sum(timed) / len(timed)
+    log("bert", step="summary", **BERT_LARGE, losses=losses, step_ms=timed, step_ms_mean=step_ms,
+        tokens_per_s=BERT_LARGE["batch"] * train_bert.SEQ / (step_ms * 1e-3),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+    if profile:
+        profile_step(lambda: train_bert.train_step(params, optimizer, tokens, targets, config),
+                     step_ms, "bert_step")
+    del params, optimizer
+    torch.cuda.empty_cache()
+    return launches
+
+
 def device_time_rows(prof) -> list:
     """(device ms, kernel name, launches) by kernel, largest first. User
     annotations (``Optimizer.step``'s range) are not kernels: their device
@@ -1358,13 +1543,20 @@ def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float,
                        window: str = "train_step", mesh=None) -> None:
     """Device time by kernel over one training step (sharded on ``mesh``);
     the idle share is taken against the mean unprofiled step time."""
+    from hivedscheduler_tpu_torch.models import train
+
+    profile_step(lambda: train.train_step(params, optimizer, tokens, config, tokens.device, mesh),
+                 unprofiled_ms, window)
+
+
+def profile_step(step, unprofiled_ms: float, window: str) -> None:
+    """Device time by kernel over one call of ``step`` (a training step that
+    returns its loss); the idle share is taken against ``unprofiled_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from hivedscheduler_tpu_torch.models import train
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        float(train.train_step(params, optimizer, tokens, config, tokens.device, mesh))
+        float(step())
         torch.cuda.synchronize()
     rows = device_time_rows(prof)
     busy_ms = sum(r[0] for r in rows)
@@ -1422,13 +1614,36 @@ def sp_shapes(kb: dict, kind: str) -> list:
             for r in kb["sp_shapes"]]
 
 
+def rank_shapes(kb: dict, group: str, kind: str) -> list:
+    """One kernel's numbers at phase 3's per-rank shapes of ``group`` ("tp":
+    a tp gang's rank; "bert": BERT-large's attention; "pp": a pipeline
+    stage's microbatch), for the kernels line. ``library_ms``: SDPA's
+    forward for the forward kernel, its whole backward for the backward
+    ones."""
+    rows = []
+    for r in kb[f"{group}_shapes"]:
+        if kind == "fwd":
+            nums = {key: r["fwd"][src] for key, src in (
+                ("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+                ("bound_by", "bound_by"), ("library_ms", "library_ms"))}
+            err = r["fwd"]["o_max_abs_err"]
+        else:
+            nums = {key: r[kind][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            nums["library_ms"] = r["library_ms"]
+            err = r[f"{kind}_max_abs_err"]
+        name = {"tp": r["tp"]} if group == "tp" else {"label": r["label"], "causal": r["causal"]}
+        rows.append({**name, "shape": r["shape"], "max_abs_err": err, **nums})
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="smoke run of the port on one card")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over one request, "
                              "over one training step and over one step of the "
-                             "perf harness's model, unsharded and sharded")
+                             "perf harness's model, unsharded and sharded, and "
+                             "over one BERT-large step")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel checks and timings (phase 3)")
     parser.add_argument("--gang-only", action="store_true",
@@ -1477,6 +1692,7 @@ def main() -> int:
     p = timed("perf", phase_perf, args.profile)
     sh = timed("sharded", phase_sharded, args.seed, args.profile, s, t)
     lc = timed("longctx", phase_longctx)
+    bt = timed("bert", phase_bert, args.seed, args.profile)
 
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     kernels = [{
@@ -1485,10 +1701,11 @@ def main() -> int:
         "source": source + "flash_fwd.cu",
         "replaces": "hivedscheduler_tpu/ops/attention.py:133",
         "launches": (s["launches"] + t["launches"]["flash_fwd"] + w["flash_fwd"] + p["flash_fwd"]
-                     + sh["flash_fwd"] + lc["flash_fwd"]),
+                     + sh["flash_fwd"] + lc["flash_fwd"] + bt["flash_fwd"]),
         "launches_by_path": {"serve": s["launches"], "train": t["launches"]["flash_fwd"],
                              "workloads": w["flash_fwd"], "perf": p["flash_fwd"],
-                             "sharded": sh["flash_fwd"], "longctx": lc["flash_fwd"]},
+                             "sharded": sh["flash_fwd"], "longctx": lc["flash_fwd"],
+                             "bert": bt["flash_fwd"]},
         # Held at the serving shape and at the training shape.
         "max_abs_err": max(k["o_max_abs_err"], kb["fwd"]["o_max_abs_err"]),
         **{key + suffix: fields[src] for suffix, fields in (("", k), ("_train", kb["fwd"]))
@@ -1496,11 +1713,7 @@ def main() -> int:
                             ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
                             ("library_ms", "library_ms"), ("tflops", "kernel_tflops"))},
         # One rank of a tp gang at the training shape (phase 3).
-        "tp_shapes": [{"tp": r["tp"], "shape": r["shape"], "max_abs_err": r["fwd"]["o_max_abs_err"],
-                       **{key: r["fwd"][src] for key, src in (
-                           ("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
-                           ("bound_by", "bound_by"), ("library_ms", "library_ms"))}}
-                      for r in kb["tp_shapes"]],
+        **{f"{group}_shapes": rank_shapes(kb, group, "fwd") for group in ("tp", "bert", "pp")},
         "sp_shapes": sp_shapes(kb, "fwd"),
     }]
     for name, kind, line in (("flash_bwd_dkdv", "dkdv", 201), ("flash_bwd_dq", "dq", 278)):
@@ -1509,9 +1722,10 @@ def main() -> int:
             "route": "cuda",
             "source": source + "flash_bwd.cu",
             "replaces": f"hivedscheduler_tpu/ops/attention.py:{line}",
-            "launches": t["launches"][name] + w[name] + p[name] + sh[name] + lc[name],
+            "launches": t["launches"][name] + w[name] + p[name] + sh[name] + lc[name] + bt[name],
             "launches_by_path": {"train": t["launches"][name], "workloads": w[name],
-                                 "perf": p[name], "sharded": sh[name], "longctx": lc[name]},
+                                 "perf": p[name], "sharded": sh[name], "longctx": lc[name],
+                                 "bert": bt[name]},
             "max_abs_err": kb[f"{kind}_max_abs_err"],
             "ms": kb[kind]["ms"],
             "plain_ms": kb[kind]["plain_ms"],
@@ -1520,12 +1734,7 @@ def main() -> int:
             # SDPA's whole backward (dQ, dK and dV in one call): compare it
             # with the two kernels' sum.
             "library_ms": kb["library_ms"],
-            "tp_shapes": [{"tp": r["tp"], "shape": r["shape"],
-                           "max_abs_err": (r["dkdv_max_abs_err"] if kind == "dkdv"
-                                           else r["dq_max_abs_err"]),
-                           **{key: r[kind][key] for key in
-                              ("ms", "plain_ms", "bound_ms", "bound_by")},
-                           "library_ms": r["library_ms"]} for r in kb["tp_shapes"]],
+            **{f"{group}_shapes": rank_shapes(kb, group, kind) for group in ("tp", "bert", "pp")},
             "sp_shapes": sp_shapes(kb, kind),
         })
     print(smi)

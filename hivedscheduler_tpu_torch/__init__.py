@@ -27,8 +27,11 @@ process per granted card (``gpu/env.py``, the pod launcher
 ``workloads/launch.py``; H100 cell types in ``gpu/topology.py``), and
 long-context gangs shard the sequence (``parallel/ulysses.py`` onto the
 flash kernels, ``parallel/ring.py``; the twin
-``workloads/train_longctx.py``). Pipeline and expert parallelism are not
-ported yet.
+``workloads/train_longctx.py``). Gangs also split the layer stack into
+GPipe stages (``parallel/pipeline.py``, pp and pp x sp; the twin
+``workloads/train_pp.py``), and BERT-large trains on one card or a dp x
+fsdp x tp gang (``models/bert.py``, ``workloads/train_bert.py``). Expert
+parallelism (Mixtral) is not ported yet.
 """
 
 from __future__ import annotations

@@ -6,9 +6,10 @@ in ``config.dtype`` from f32 master parameters, each block checkpointed
 under ``config.remat_policy``; attention's backward runs the hand-written
 flash backward kernels. On a mesh (``init_sharded``, ``make_train_step``)
 the parameters and AdamW's moments are DTensors placed by the rule table
-(ZeRO-3 over fsdp, tp over heads/mlp/vocab, dp and sp replicating), the
-batch is each rank's rows and, with sp > 1, its shard of the columns; the
-step's collectives are ``parallel/sharding.py``'s.
+(ZeRO-3 over fsdp, tp over heads/mlp/vocab, the layers over pp's
+stages, dp and sp replicating), the batch is each rank's rows and, with
+sp > 1, its shard of the columns; the step's collectives are
+``parallel/sharding.py``'s and, with pp > 1, ``parallel/pipeline.py``'s.
 """
 
 from __future__ import annotations
@@ -93,22 +94,28 @@ def next_token_loss(
     position's target is the next sp rank's first token (:func:`_sp_targets`),
     only the last sp rank's last position goes unscored, and the loss is
     this rank's share of the mean over its rows' S - 1 global targets, so
-    that the sp ranks' losses sum to it (``sharding.mean_over_batch``)."""
+    that the sp ranks' losses sum to it (``sharding.mean_over_batch``).
+
+    With pp > 1 the loss is finished on the last stage; every other stage
+    returns the pipeline's anchor, a zero whose ``backward()`` runs that
+    stage's part of the schedule."""
     active = sharding.is_active(mesh)
     tp = sharding.axes_size("tp", mesh) if active else 1
     sp = sharding.axes_size("sp", mesh) if active else 1
     if fused is None:
         fused = config.vocab_size >= FUSED_LOSS_MIN_VOCAB and tp == 1
+    if fused and tp > 1:
+        raise ValueError("the fused loss needs the vocab whole (tp == 1)")
     targets = _sp_targets(tokens, mesh) if sp > 1 else tokens[:, 1:]
     n = targets.shape[1]  # positions scored on this rank
+    x, head = transformer.forward_hidden(params, tokens, config, mesh)
+    if head is None:
+        return x  # a pipeline stage before the last: the anchor (0)
     if fused:
-        if tp > 1:
-            raise ValueError("the fused loss needs the vocab whole (tp == 1)")
-        x, head = transformer.forward_hidden(params, tokens, config, mesh)
         b, _, d = x.shape
         loss = _chunked_ce(x[:, :n].reshape(b * n, d), head, targets.reshape(-1), chunk)
     else:
-        logits = transformer.forward(params, tokens, config, mesh)  # [B, S, V/tp] f32
+        logits = transformer.logits_of(x, head, mesh)  # [B, S, V/tp] f32
         if tp > 1:
             v = logits.shape[-1]
             loss = sharding.vocab_parallel_nll(logits[:, :n].reshape(-1, v), targets.reshape(-1),

@@ -17,7 +17,9 @@ parallelism over tp; the stacked tree stays the public layout, so
 checkpoints and ``convert.py`` see the same names on one process and a
 gang. With sp > 1 each rank holds a contiguous shard of the sequence and
 attends through ``sharding.sp_attention`` (Ulysses or ring, ``sp_mode``).
-Pipeline parallelism belongs to a later slice.
+With pp > 1 each rank holds its stage's L/P layers and the layer loop is
+``parallel.pipeline``'s GPipe schedule: the embedding runs on the first
+stage, the final norm and the head on the last.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from torch.utils.checkpoint import (
 
 from .. import Device, resolve_device
 from ..ops.attention import mha  # noqa: F401 (registers torch.ops.hived.flash_fwd)
-from ..parallel import sharding
+from ..parallel import pipeline, sharding
 
 Params = Dict[str, Any]
 REMAT_POLICIES = ("full", "dots", "flash", "dots+flash")
@@ -67,6 +69,11 @@ class TransformerConfig:
     # legal and the tensors are on the card (the flash kernels run on the
     # full sequence), ring attention otherwise; "ring"/"ulysses" force one.
     sp_mode: str = "auto"
+    # GPipe microbatch count when the mesh has pp > 1 (parallel/pipeline.py);
+    # None = the largest divisor of the rank's batch <= 2*pp, which can be
+    # smaller than 2*pp (batch 10 at pp 4 gives 5). The bubble is
+    # (pp-1)/(M+pp-1) of the step.
+    pp_microbatches: Optional[int] = None
 
     def __post_init__(self):
         sharding.validate_sp_mode(self.sp_mode)
@@ -190,15 +197,15 @@ def logical_axes(config: TransformerConfig) -> Params:
     return axes
 
 
-def _place(
-    items: Iterable[Tuple[Tuple[str, ...], torch.Tensor]], config: TransformerConfig, mesh: Any
+def place(
+    items: Iterable[Tuple[Tuple[str, ...], torch.Tensor]], axes: Params, mesh: Any
 ) -> Params:
     """DTensors on ``mesh``'s parameter sub-mesh from whole (path, leaf)
-    pairs, placed by the rule table: each rank keeps its shard of a leaf,
-    and the rest is freed before the next leaf is made."""
+    pairs, placed by the rule table from the logical ``axes`` tree: each
+    rank keeps its shard of a leaf, and the rest is freed before the next
+    leaf is made."""
     pmesh = sharding.param_mesh(mesh)
-    placements = {path: sharding.placements_for(axes, pmesh)
-                  for path, axes in _flatten(logical_axes(config))}
+    placements = {path: sharding.placements_for(names, pmesh) for path, names in _flatten(axes)}
     return _tree((path, sharding.distribute(leaf, placements[path], pmesh)) for path, leaf in items)
 
 
@@ -213,13 +220,13 @@ def init_distributed(
     table: each leaf is drawn whole on the device from ``generator`` (the
     same stream as ``init``) and only this rank's shard is kept, so no rank
     holds more than one whole leaf. Value for value ``init``'s."""
-    return _place(init_leaves(config, generator, device, dtype), config, mesh)
+    return place(init_leaves(config, generator, device, dtype), logical_axes(config), mesh)
 
 
 def distribute(params: Params, config: TransformerConfig, mesh: Any) -> Params:
     """A whole parameter tree (the same on every rank) as DTensors on
     ``mesh``, placed by the rule table."""
-    return _place(_flatten(params), config, mesh)
+    return place(_flatten(params), logical_axes(config), mesh)
 
 
 def _flatten(tree: Params, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -354,18 +361,9 @@ def _remat_policy(name: str) -> Callable:
     return functools.partial(create_selective_checkpoint_contexts, ops)
 
 
-def _unstack(layers: Params) -> List[Params]:
-    """Per-layer views of the stacked leaves, one ``unbind`` a leaf: the
-    backward stacks the layer gradients once, instead of scattering each
-    into its own zero ``[L, ...]`` tensor as indexing would."""
-    cols = {k: v.unbind(0) for k, v in layers.items()}
-    n = len(next(iter(cols.values())))
-    return [{k: col[i] for k, col in cols.items()} for i in range(n)]
-
-
 def forward_hidden(
     params: Params, tokens: torch.Tensor, config: TransformerConfig, mesh: Any = None
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Final normed hidden states [B, S, D] (compute dtype) and the LM-head
     weight [D, V]. Differentiable: with ``config.remat`` each block is
     checkpointed under ``config.remat_policy`` when autograd records.
@@ -373,38 +371,73 @@ def forward_hidden(
     On an active mesh (``sharding.is_active``) ``params`` are DTensors
     placed by ``logical_axes`` and ``tokens`` this rank's rows
     (``sharding.shard_batch``); the hidden states are this rank's rows and
-    the head its tp shard [D, V/tp]."""
+    the head its tp shard [D, V/tp]. With pp > 1 the layers run as the
+    pipeline's stages; a stage before the last returns (the pipeline's
+    anchor, None): the loss is the last stage's, and ``backward()`` on the
+    anchor runs this stage's part of the backward schedule."""
     c = config
     context_fn = _remat_policy(c.remat_policy) if c.remat else None
+    pp = 1
     if sharding.is_active(mesh):
         sharding.check_supported(mesh)
+        pp = pipeline.stages(mesh)
         local = sharding.to_local(params)
-        x = sharding.embed_lookup(local["embed"], tokens, mesh, c.dtype)
+        if pp > 1:
+            pipeline.check_layers(c.n_layers, pp)
+        if pp > 1 and mesh.get_local_rank("pp") > 0:
+            # Received from the previous stage: only the shape is read here.
+            x = torch.empty(tokens.shape + (c.d_model,), dtype=c.dtype, device=tokens.device)
+        else:
+            x = sharding.embed_lookup(local["embed"], tokens, mesh, c.dtype)
         block = functools.partial(_sharded_block, config=c, mesh=mesh)
         layers = local["layers"]
-        ln_f = local["ln_f"].to(c.dtype)
-        head = gather_head(local, c, mesh)
     else:
         params = cast(params, c.dtype)  # f32 master -> compute dtype
         x = params["embed"][tokens]
         block = functools.partial(_block, config=c)
         layers = params["layers"]
-        ln_f = params["ln_f"]
-        head = params["embed"].T if c.tied_embeddings else params["lm_head"]
-    for lp in _unstack(layers):
+
+    def run(h: torch.Tensor, lp: Params) -> torch.Tensor:
         if c.remat and torch.is_grad_enabled():
-            x = checkpoint(block, x, lp, use_reentrant=False, context_fn=context_fn)
-        else:
-            x = block(x, lp)
-    return rms_norm(x, ln_f), head
+            return checkpoint(block, h, lp, use_reentrant=False, context_fn=context_fn)
+        return block(h, lp)
+
+    if pp > 1:
+        x = pipeline.stage_blocks(layers, x, mesh, run, c.pp_microbatches)
+        if not pipeline.is_last_stage(mesh):
+            return x, None
+    else:
+        for lp in pipeline.unstack(layers):
+            x = run(x, lp)
+    if sharding.is_active(mesh):
+        return rms_norm(x, local["ln_f"].to(c.dtype)), gather_head(local, c, mesh)
+    head = params["embed"].T if c.tied_embeddings else params["lm_head"]
+    return rms_norm(x, params["ln_f"]), head
+
+
+def logits_of(x: torch.Tensor, head: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+    """The f32 logits of final hidden states under the head (on an active
+    mesh the rank's tp shard of the vocab)."""
+    if sharding.is_active(mesh):
+        x = sharding.copy_to_tp(x, mesh)
+    return (x @ head).float()
 
 
 def forward(
     params: Params, tokens: torch.Tensor, config: TransformerConfig, mesh: Any = None
 ) -> torch.Tensor:
     """Logits [B, S, V] in f32; ``tokens`` [B, S] int. On an active mesh,
-    this rank's rows and its tp shard of the vocab, [B, S, V/tp]."""
+    this rank's rows and its tp shard of the vocab, [B, S, V/tp]. With
+    pp > 1 the last stage's logits are broadcast to every stage, as the
+    JAX package's pipeline broadcasts its output (not differentiable: a
+    step takes ``models/train.next_token_loss``, which finishes the loss on
+    the last stage)."""
     x, head = forward_hidden(params, tokens, config, mesh)
-    if sharding.is_active(mesh):
-        x = sharding.copy_to_tp(x, mesh)
-    return (x @ head).float()
+    if head is not None:
+        logits = logits_of(x, head, mesh)
+    if pipeline.stages(mesh) > 1 and sharding.is_active(mesh):
+        if head is None:
+            vshard = config.vocab_size // sharding.axes_size("tp", mesh)
+            logits = torch.empty(tokens.shape + (vshard,), device=tokens.device)
+        logits = sharding.broadcast_from(logits, mesh, "pp", pipeline.stages(mesh) - 1)
+    return logits

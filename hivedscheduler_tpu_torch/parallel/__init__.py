@@ -2,5 +2,5 @@
 ``hivedscheduler_tpu/parallel``): ``mesh.py`` boots a gang and lays out
 its mesh, ``sharding.py`` places parameters by the rule table and writes
 out the sharded step's collectives, ``ulysses.py`` and ``ring.py`` shard
-attention over the sequence. Pipeline parallelism is a later slice of the
-port."""
+attention over the sequence, ``pipeline.py`` runs the layer stack as GPipe
+stages over pp."""

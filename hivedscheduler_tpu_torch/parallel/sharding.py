@@ -4,10 +4,11 @@ Counterpart of ``hivedscheduler_tpu/parallel/sharding.py``. The rule table
 is the JAX package's: every tensor dimension has a logical name
 (``transformer.logical_axes``), and ``DEFAULT_RULES`` maps each name to the
 mesh axis it shards over. A parameter is a ``DTensor`` on the (dp, fsdp,
-tp) sub-mesh of the port's 6-axis mesh (``parallel/mesh.py``,
-:func:`param_mesh`) with the placements the table gives
-(:func:`placements_for`): its storage is this rank's shard, and
-``torch.distributed.checkpoint`` reshards it between layouts.
+tp) sub-mesh of the port's 6-axis mesh, or (dp, pp, fsdp, tp) with
+pipeline stages (``parallel/mesh.py``, :func:`param_mesh`), with the
+placements the table gives (:func:`placements_for`): its storage is this
+rank's shard, and ``torch.distributed.checkpoint`` reshards it between
+layouts.
 
 JAX leaves the collectives to GSPMD; here they are written out, each an
 autograd function over one mesh axis, and the model runs on each rank's
@@ -28,14 +29,18 @@ local tensors (``DTensor.to_local``):
   (``parallel/ulysses.py``, :func:`all_to_all`) or ring attention
   (``parallel/ring.py``, :func:`shift`). Parameters are replicated over
   sp, so :func:`reduce_gradients` sums their gradients over it too.
+- Pipeline parallelism over ``pp`` (``parallel/pipeline.py``, :func:`send`
+  and :func:`recv` between neighbouring stages): the stacked layers shard
+  over pp; a leaf replicated there (the embedding, the final norm, the
+  head) gets its gradient only on the stages that use it, and
+  :func:`reduce_gradients` sums it over pp.
 
 A mesh is *active* when a process group exists (:func:`is_active`): then
 the model runs this sharded code. A collective over an axis of one rank is
 the identity and is skipped, as GSPMD emits none, so a one-rank mesh runs
 the sharded code with no communication. Without a group (``mesh=None`` or
 the one-process mesh of ``make_mesh``) the model keeps its unsharded path.
-Pipeline and expert parallelism (pp, ep > 1) are later slices of the port
-and raise.
+Expert parallelism (ep > 1) is a later slice of the port and raises.
 """
 
 from __future__ import annotations
@@ -138,25 +143,24 @@ def is_active(mesh: Any) -> bool:
 
 def check_supported(mesh: Any) -> None:
     """Raise for the axes whose parallelism is a later slice of the port."""
-    later = {"pp": "queue 1 item 10 (pipeline parallelism)",
-             "ep": "queue 1 item 12 (expert parallelism)"}
-    for axis, item in later.items():
-        if axes_size(axis, mesh) > 1:
-            raise NotImplementedError(f"{axis} > 1 needs ROADMAP {item}")
+    if axes_size("ep", mesh) > 1:
+        raise NotImplementedError("ep > 1 needs ROADMAP queue 1 item 12 (expert parallelism)")
 
 
-# The mesh axes a parameter's placements name: the rule table places no
-# parameter on sp (replicated there) and pp and ep are 1 on every mesh the
-# port runs (``check_supported``); DTensor's sharding propagation also
-# grows steeply with the mesh's rank (AdamW's first step on a 6-D mesh took
-# minutes on the CPU, on this 3-D one a fraction of a second).
-PARAM_AXES = ("dp", "fsdp", "tp")
+def param_axes(mesh: Any) -> Tuple[str, ...]:
+    """The mesh axes a parameter's placements name: (dp, fsdp, tp), and pp
+    between dp and fsdp where it has more than one stage. The rule table
+    places no parameter on sp (replicated there) and ep is 1 on every mesh
+    the port runs (``check_supported``). DTensor's sharding propagation
+    grows steeply with the mesh's rank (AdamW's first step on the 6-D mesh
+    took minutes on the CPU), so an axis of one rank is left out."""
+    return ("dp", "pp", "fsdp", "tp") if axes_size("pp", mesh) > 1 else ("dp", "fsdp", "tp")
 
 
 def param_mesh(mesh: Any) -> Any:
-    """The sub-mesh over ``PARAM_AXES`` that parameters are placed on."""
+    """The sub-mesh over :func:`param_axes` that parameters are placed on."""
     check_supported(mesh)
-    return mesh[PARAM_AXES]
+    return mesh[param_axes(mesh)]
 
 
 def batch_rank(mesh: Any) -> int:
@@ -229,6 +233,34 @@ def _shift(x: torch.Tensor, mesh: Any, axis: str, offset: int) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+def send(x: torch.Tensor, mesh: Any, axis: str, to: int) -> None:
+    """Send ``x`` to the rank at index ``to`` along ``axis`` (a pipeline
+    stage's hop); the peer calls :func:`recv`."""
+    group = _group(mesh, axis)
+    dist.isend(x.contiguous(), dist.get_global_rank(group, to), group).wait()
+
+
+def recv(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device, mesh: Any, axis: str,
+         frm: int) -> torch.Tensor:
+    """A new tensor received from the rank at index ``frm`` along ``axis``."""
+    group = _group(mesh, axis)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    dist.irecv(out, dist.get_global_rank(group, frm), group).wait()
+    return out
+
+
+def broadcast_from(x: torch.Tensor, mesh: Any, axis: str, src: int) -> torch.Tensor:
+    """The tensor that the rank at index ``src`` along ``axis`` holds, on
+    every rank of the axis; the others pass a tensor of its shape and
+    dtype. Not differentiable."""
+    if axes_size(axis, mesh) == 1:
+        return x
+    group = _group(mesh, axis)
+    x = x.detach().contiguous()
+    dist.broadcast(x, dist.get_global_rank(group, src), group=group)
+    return x
 
 
 def _exchange(x: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
@@ -353,18 +385,24 @@ def fsdp_dim(logical: Sequence[Optional[str]], rules: Optional[Dict[str, Any]] =
 def reduce_gradients(leaves: Sequence[DTensor], mesh: Any) -> None:
     """Finish the gradients after backward: sum each leaf's local gradient
     over the batch axes it is replicated on (a leaf sharded over fsdp was
-    reduce-scattered there by its gather) and over sp (each sp rank's loss
-    scores its own positions, and no parameter is placed on sp), then
-    divide by the batch's shard count, so that each is the gradient of the
-    global mean loss."""
+    reduce-scattered there by its gather), over sp (each sp rank's loss
+    scores its own positions, and no parameter is placed on sp) and over
+    pp where it is replicated there (only the stages that use such a leaf
+    have its gradient; the others hold zeros, so each use counts once),
+    then divide by the batch's shard count, so that each is the gradient of
+    the global mean loss. With pp > 1 a leaf that got no gradient on this
+    stage gets zeros first: every rank makes the same collectives."""
     n = axes_size(BATCH_AXES, mesh)
-    sp = axes_size("sp", mesh)
+    sp, pp = axes_size("sp", mesh), axes_size("pp", mesh)
     for p in leaves:
         if p.grad is None:
-            continue
+            if pp == 1:
+                continue
+            p.grad = torch.zeros_like(p)
         g = p.grad.to_local()
         for axis, placement in zip(p.device_mesh.mesh_dim_names, p.placements):
-            if axis in BATCH_AXES and not isinstance(placement, Shard) and axes_size(axis, mesh) > 1:
+            if ((axis in BATCH_AXES or axis == "pp") and not isinstance(placement, Shard)
+                    and axes_size(axis, mesh) > 1):
                 dist.all_reduce(g, group=_group(mesh, axis))
         if sp > 1:
             dist.all_reduce(g, group=_group(mesh, "sp"))
@@ -373,11 +411,12 @@ def reduce_gradients(leaves: Sequence[DTensor], mesh: Any) -> None:
 
 
 def mean_over_batch(loss: torch.Tensor, mesh: Any) -> torch.Tensor:
-    """The global mean loss from each rank's share: a mean over its rows
-    (equal rows on every batch shard), which its sp ranks' shares sum to
-    (``models/train.next_token_loss``)."""
+    """The global mean loss, on every rank, from each rank's share: a mean
+    over its rows (equal rows on every batch shard), which its sp ranks'
+    shares sum to (``models/train.next_token_loss``); with pp > 1 only the
+    last stage holds it and the others pass 0."""
     total = loss.detach()
-    for axis in BATCH_AXES + ("sp",):
+    for axis in BATCH_AXES + ("sp", "pp"):
         if axes_size(axis, mesh) > 1:
             total = _all_reduce(total, mesh, axis)
     n = axes_size(BATCH_AXES, mesh)
@@ -421,10 +460,11 @@ def vocab_parallel_embed(
     return reduce_from_tp(out, mesh)
 
 
-def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, mesh: Any) -> torch.Tensor:
-    """Mean negative log-likelihood of ``targets`` [N] under tp-sharded
+def vocab_parallel_token_nll(logits: torch.Tensor, targets: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """Negative log-likelihood of each of ``targets`` [N] under tp-sharded
     logits [N, V/tp] (f32): the log-softmax's max and sum and the target's
-    logit each combine over tp, so no rank holds [N, V]."""
+    logit each combine over tp, so no rank holds [N, V]. Returns [N], the
+    same on every tp rank."""
     vshard = logits.shape[-1]
     m = _all_reduce(logits.detach().amax(dim=-1), mesh, "tp", "max")
     s = reduce_from_tp(torch.exp(logits - m[:, None]).sum(dim=-1), mesh)
@@ -432,7 +472,12 @@ def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, mesh: Any) -
     ok = (local >= 0) & (local < vshard)
     picked = logits.gather(1, local.clamp(0, vshard - 1)[:, None])[:, 0]
     tl = reduce_from_tp(torch.where(ok, picked, torch.zeros((), device=picked.device)), mesh)
-    return torch.mean(m + torch.log(s) - tl)
+    return m + torch.log(s) - tl
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """The mean of :func:`vocab_parallel_token_nll`."""
+    return torch.mean(vocab_parallel_token_nll(logits, targets, mesh))
 
 
 def mha_shardable(

@@ -79,6 +79,9 @@ def build(
     config = MODELS[model]()
     config = dataclasses.replace(config, n_layers=layers or config.n_layers)
     active = sharding.is_active(mesh)
+    if active and sharding.axes_size("pp", mesh) > 1:
+        raise NotImplementedError("serving runs unpipelined (pp 1), as the JAX package's "
+                                  "generate.py does")
     if int8 and active:
         raise NotImplementedError("int8 linears on a mesh are not ported; serve them on one process")
     if ckpt:

@@ -18,10 +18,15 @@ step on 4 rows; a row that diverges raises. Rows:
   take the branch that expands K/V to the query heads);
 - ``fsdp_tp``: tp 2 when n is even, the rest fsdp (sp 1);
 - ``fsdp``: fsdp n;
-- ``dp``: dp 2, fsdp n / 2 (n even).
+- ``dp``: dp 2, fsdp n / 2 (n even);
+- ``pp``: pp 2, fsdp n / 4, tp 2 (n divisible by 4): the GPipe schedule,
+  each stage one of tiny's two layers;
+- ``pp-x-sp``: pp 2, sp 2, fsdp n / 4 (n divisible by 4): the pipeline
+  with the sequence sharded inside each stage.
 
-The JAX dryrun's pipeline and expert rows (``pp``, ``pp-x-sp``,
-``ep-moe``) are ROADMAP queue 1 items 10 and 12.
+Each rank reports its kernel launches per row; :func:`expected_launches`
+is what each kernel must show on the card. The JAX dryrun's expert row
+(``ep-moe``) is ROADMAP queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -37,8 +42,8 @@ from typing import Dict, List, Optional, Sequence
 
 TOL = 5e-3
 SEQ = 256
-ROWS = ("fsdp_sp_tp", "ulysses-sp", "fsdp_tp", "fsdp", "dp")
-LATER_ROWS = {"pp": 10, "pp-x-sp": 10, "ep-moe": 12}
+ROWS = ("fsdp_sp_tp", "ulysses-sp", "fsdp_tp", "fsdp", "dp", "pp", "pp-x-sp")
+LATER_ROWS = {"ep-moe": 12}
 # The rows that force a sequence-parallel backend.
 SP_MODE = {"ulysses-sp": "ulysses"}
 
@@ -67,7 +72,30 @@ def layouts(n: int, rows: Sequence[str] = ROWS) -> Dict[str, Dict[str, int]]:
         table["ulysses-sp"] = main
     if n % 2 == 0:
         table["dp"] = dict(dp=2, fsdp=n // 2)
+    if n % 4 == 0:
+        table["pp"] = dict(pp=2, fsdp=n // 4, tp=2)
+        table["pp-x-sp"] = dict(pp=2, sp=2, fsdp=n // 4)
     return {r: table[r] for r in rows if r in table}
+
+
+def _rows(sizes: Dict[str, int]) -> int:
+    """The global batch's rows on a layout: at least 4, a multiple of dp x fsdp."""
+    dpf = sizes.get("dp", 1) * sizes.get("fsdp", 1)
+    return -(-4 // dpf) * dpf
+
+
+def expected_launches(sizes: Dict[str, int]) -> int:
+    """Each kernel's launches on every rank in one step of a row on the
+    card: once a layer (tiny runs without remat), and on a pipeline stage
+    once a layer of the stage a microbatch."""
+    from ..models import transformer
+    from ..parallel import pipeline
+
+    layers, pp = transformer.tiny().n_layers, sizes.get("pp", 1)
+    if pp == 1:
+        return layers
+    local_rows = _rows(sizes) // (sizes.get("dp", 1) * sizes.get("fsdp", 1))
+    return layers // pp * pipeline.microbatches(local_rows, pp)
 
 
 def _tokens(rows: int):
@@ -120,8 +148,7 @@ def _worker(rank: int, world: int, port: int, device: str, rows: Sequence[str]) 
         for row, sizes in layouts(world, rows).items():
             mesh = pmesh.make_mesh(pmesh.MeshConfig(**sizes), device)
             config, params, optimizer = _params(device, mesh, SP_MODE.get(row, "auto"))
-            dpf = sizes.get("dp", 1) * sizes.get("fsdp", 1)
-            tokens = sharding.shard_batch(_tokens(-(-4 // dpf) * dpf), mesh)
+            tokens = sharding.shard_batch(_tokens(_rows(sizes)), mesh)
             step = train.make_train_step(config, mesh, optimizer)
             before = kernel_launches()
             losses[row] = float(step(params, tokens))
@@ -141,7 +168,8 @@ def dryrun(n: int, rows: Sequence[str] = ROWS, device: str = "cpu",
            timeout: float = 600) -> Dict[str, object]:
     """Run the rows on an n-process gang and hold each rank's loss to the
     one-process step's; returns {"reference": loss, "rows": {row: loss},
-    "launches": {row: each rank's kernel launches}} (CUDA launches only).
+    "launches": {row: each rank's kernel launches}} (CUDA launches only),
+    "expected": {row: each kernel's launches per rank on the card}}.
     Every process it starts is ended before it returns."""
     wanted = layouts(n, rows)
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -176,7 +204,8 @@ def dryrun(n: int, rows: Sequence[str] = ROWS, device: str = "cpu",
           f"{TOL}: " + ", ".join(f"{row} {wanted[row]} loss={v:.4f}" for row, v in losses.items()),
           flush=True)
     return {"reference": ref, "rows": losses,
-            "launches": {row: [o["launches"][row] for o in outs] for row in wanted}}
+            "launches": {row: [o["launches"][row] for o in outs] for row in wanted},
+            "expected": {row: expected_launches(sizes) for row, sizes in wanted.items()}}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:

@@ -1,4 +1,6 @@
 """What the port's workload entry points share (counterpart of
 ``example/workloads/common.py``): the boot from the scheduler's env block
 and synthetic tokens; the pod's launcher (``launch.py``, one process per
-granted card) and the long-context twin (``train_longctx.py``)."""
+granted card) and the twins of the JAX package's workloads: long context
+(``train_longctx.py``), pipeline stages (``train_pp.py``) and BERT-large
+(``train_bert.py``)."""

@@ -1,13 +1,14 @@
 """Worker process for the port's multi-process entry-point tests (gloo).
 
-    python _torch_entry_worker.py train|serve <rank> <world> <port> <arg>...
-    python -m tests._torch_entry_worker launched <arg>...
+    python _torch_entry_worker.py train|train_pp|serve <rank> <world> <port> <arg>...
+    python -m tests._torch_entry_worker launched|launched_pp <arg>...
     python -m tests._torch_entry_worker fail-or-hang
 
-``train``/``serve`` write the gang's env block (the keys the scheduler
-emits, coordinator on loopback) into ``HIVED_TPU_ENV`` and run
-``train.main`` or ``serve.main`` on the CPU with the remaining arguments.
-``launched`` runs ``train.main`` in the environment the pod's launcher
+``train``/``train_pp``/``serve`` write the gang's env block (the keys the
+scheduler emits, coordinator on loopback) into ``HIVED_TPU_ENV`` and run
+``train.main``, ``workloads/train_pp.main`` or ``serve.main`` on the CPU
+with the remaining arguments. ``launched`` (``launched_pp``) runs
+``train.main`` (``train_pp.main``) in the environment the pod's launcher
 (``workloads/launch.py``) gave it. Each prints one JSON line: the rank, the
 losses of each step or each request's tokens (this rank's rows), the world
 size. ``fail-or-hang`` exits 3 as rank 1 and sleeps as any other rank.
@@ -21,16 +22,23 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def launched(argv) -> None:
+def _train_losses(mode, argv):
+    from hivedscheduler_tpu_torch import train
+    from hivedscheduler_tpu_torch.workloads import train_pp
+
+    if mode.endswith("_pp"):
+        return [r["loss"] for r in train_pp.main(argv + ["--device", "cpu"])]
+    return [r["loss"] for r in train.main(argv + ["--device", "cpu"]).records]
+
+
+def launched(mode, argv) -> None:
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(2)  # as the train/serve gangs: the same sums, the same losses
 
-    from hivedscheduler_tpu_torch import train
-
     try:
-        out = {"losses": [r["loss"] for r in train.main(argv + ["--device", "cpu"]).records]}
+        out = {"losses": _train_losses(mode, argv)}
         out["rank"], out["world"] = dist.get_rank(), dist.get_world_size()
         out["env"] = {k: os.environ.get(k) for k in
                       ("RANK", "LOCAL_RANK", "WORLD_SIZE", "CUDA_VISIBLE_DEVICES", "JAX_NUM_PROCESSES")}
@@ -41,8 +49,8 @@ def launched(argv) -> None:
 
 
 def main() -> None:
-    if sys.argv[1] == "launched":
-        return launched(sys.argv[2:])
+    if sys.argv[1] in ("launched", "launched_pp"):
+        return launched(sys.argv[1], sys.argv[2:])
     if sys.argv[1] == "fail-or-hang":
         if os.environ["RANK"] == "1":
             sys.exit(3)
@@ -58,11 +66,11 @@ def main() -> None:
 
     torch.set_num_threads(2)  # the ranks share the host's cores
 
-    from hivedscheduler_tpu_torch import serve, train
+    from hivedscheduler_tpu_torch import serve
 
     try:
-        if mode == "train":
-            out = {"losses": [r["loss"] for r in train.main(argv + ["--device", "cpu"]).records]}
+        if mode in ("train", "train_pp"):
+            out = {"losses": _train_losses(mode, argv)}
         else:
             out = {"tokens": [r["tokens"].tolist() for r in serve.main(argv + ["--device", "cpu"])]}
         out["world"] = dist.get_world_size()

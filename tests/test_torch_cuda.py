@@ -200,24 +200,38 @@ def test_cuda_kernels_at_the_ulysses_per_rank_shapes(cuda_device, cards):
     _check_rank_shape(cuda_device, *_SP_HEADS[cards], 16384, cards)
 
 
-def _check_rank_shape(cuda_device, h, hkv, s, seed):
-    """All three kernels at B1 S x H/Hkv, D 128, causal bf16, against their
-    plain versions."""
+# BERT-large's attention (non-causal, 16 heads of 64, S512) as one batch
+# shard of its twin holds it and as its tp 2 rank; one microbatch of the
+# pipeline twin's stage on four cards (pp 2 x tp 2: B2 S4096 H16/Hkv4).
+_MODEL_SHAPES = {"bert_h16": (8, 512, 16, 16, 64, False), "bert_tp2_h8": (8, 512, 8, 8, 64, False),
+                 "pp_stage_mb": (2, 4096, 16, 4, 128, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_MODEL_SHAPES))
+def test_cuda_kernels_at_bert_and_pipeline_stage_shapes(cuda_device, name):
+    b, s, h, hkv, d, causal = _MODEL_SHAPES[name]
+    _check_rank_shape(cuda_device, h, hkv, s, sorted(_MODEL_SHAPES).index(name), b, d, causal)
+
+
+def _check_rank_shape(cuda_device, h, hkv, s, seed, b=1, d=128, causal=True):
+    """All three kernels at B x S x H/Hkv x D (bf16) against their plain
+    versions."""
     gen = torch.Generator(device=cuda_device).manual_seed(seed)
-    q, do = (torch.randn(1, s, h, 128, device=cuda_device, dtype=torch.bfloat16,
+    q, do = (torch.randn(b, s, h, d, device=cuda_device, dtype=torch.bfloat16,
                          generator=gen) for _ in range(2))
-    k, v = (torch.randn(1, s, hkv, 128, device=cuda_device, dtype=torch.bfloat16,
+    k, v = (torch.randn(b, s, hkv, d, device=cuda_device, dtype=torch.bfloat16,
                         generator=gen) for _ in range(2))
-    out, lse = TA.flash_attention(q, k, v, True)
-    ref, ref_lse = TA.flash_attention_reference(q, k, v, True)
+    out, lse = TA.flash_attention(q, k, v, causal)
+    ref, ref_lse = TA.flash_attention_reference(q, k, v, causal)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-3
     del ref, ref_lse
     delta = TA.flash_bwd_delta(out, do)
-    dk, dv = TA.flash_bwd_dkdv(q, k, v, do, lse, delta, True)
-    dq = TA.flash_bwd_dq(q, k, v, do, lse, delta, True)
-    ref_dk, ref_dv = TA.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, True)
-    ref_dq = TA.flash_bwd_dq_reference(q, k, v, do, lse, delta, True)
+    dk, dv = TA.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    dq = TA.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    ref_dk, ref_dv = TA.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal)
+    ref_dq = TA.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
     for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         scale = want.float().abs().max().item()
         assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
