@@ -35,7 +35,8 @@ neither the kernels line nor the last line, since no main path ran):
              attention (non-causal, head_dim 64, S512: B8 H16 as one batch
              shard of its twin, B8 H8 as its tp 2 rank) and one microbatch
              of the pipeline twin's stage on four cards (B2 S4096 H16/Hkv4,
-             causal) are held and timed with all three kernels too.
+             causal) are held and timed with all three kernels too, and so
+             is Mixtral's training batch (B4 S4096 H32/Hkv8 D128, causal).
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
              tokens through the serving entry point. Launch counts are set
@@ -106,7 +107,11 @@ neither the kernels line nor the last line, since no main path ran):
              Llama-3-8B's widths at 8 layers, batch 8 x 4096 in 4
              microbatches, 3 steps) run through the pod's launcher on a
              four-card bind info, their losses within GANG_TOL of the same
-             model, seeds and batches on one card. With one card, the
+             model, seeds and batches on one card; so does the Mixtral twin
+             (ep 4 x fsdp 1: two experts a rank, every rank holding all 4
+             rows; 2 layers, 4 x 4096, 3 steps), each rank launching the
+             kernels as phase 11 (c) does (the dryrun's ``ep-moe`` row
+             launches none: Mixtral tiny's heads of 16). With one card, the
              summary records ``"nccl_ranks": 1``.
 9. longctx - the long-context twin (``workloads/train_longctx.py``) at
              Llama-3-8B's full width, depth cut to 2 layers, 3 steps of
@@ -125,14 +130,40 @@ neither the kernels line nor the last line, since no main path ran):
              batch: every step launches the forward kernel twice a layer
              (48) and each backward kernel once (24), losses finite and
              falling; step ms, tokens/s and peak memory printed.
+11. mixtral - after phase 10's weights are freed. (a) a small f32
+             Mixtral (2 layers, d 128, 4 heads of 32, 2 KV heads, 4 experts,
+             top-2, S256: it reaches the kernels, which Mixtral tiny's
+             head_dim 16 does not) takes 2 steps of the twin's step
+             (``workloads/train_mixtral.py``, full remat) on the card and on
+             the CPU from the same weights, held within TRAIN_TOL, each card
+             step launching the forward twice a layer and each backward
+             once; greedy tokens from one prompt through the ``ffn`` hook
+             must be equal on both. (b) ``mixtral_8x7b`` served at every
+             published width (vocab 32000, d 4096, 32/8 heads of 128, d_ff
+             14336, 8 experts, top-2, capacity 1.25, theta 1e6), depth cut
+             to 16 layers (46.96 GB in bf16; 32 would not fit one card):
+             phase 4's traffic (batch 4 x prompt 2048 x 32 greedy tokens,
+             2 requests after a warm-up) through ``serve.run_request``;
+             every prefill layer launches the forward kernel, the tokens are
+             in range, and the prefill's last logits lie within
+             MAX_LOGIT_GAP of an uncached ``forward()`` over the same prompt
+             (the same tokens, so the same capacity); TTFT, decode rate and
+             peak memory printed. (c) the twin's job at every width, depth
+             cut to 2 layers (3,164,688,384 parameters), 4 x 4096 tokens a
+             step from the twin's seeds, 2 warm-up and 4 timed steps: each
+             step launches the forward 4 times and each backward twice,
+             losses finite, the first within LOSS_BAND of ln(32000) + 0.5
+             + the aux term, the last below the first; step ms, tokens/s
+             and peak memory printed.
 
 Each phase logs its seconds. The lines before the last are nvidia-smi's
 name and power limit, then one JSON object with each kernel's numbers (its
 ``launches_by_path``: serve, train, workloads, perf, sharded, longctx,
-bert); the last line is ``{"ok": true, "device": {...}}``. Each kernel's
-``tp_shapes`` holds its numbers at phase 3's per-rank tp shapes,
-``sp_shapes`` at the Ulysses per-rank shapes, ``bert_shapes`` at BERT's
-and ``pp_shapes`` at the pipeline stage's. In the kernels line, the forward's
+bert, mixtral); the last line is ``{"ok": true, "device": {...}}``. Each
+kernel's ``tp_shapes`` holds its numbers at phase 3's per-rank tp shapes,
+``sp_shapes`` at the Ulysses per-rank shapes, ``bert_shapes`` at BERT's,
+``pp_shapes`` at the pipeline stage's and ``mixtral_shapes`` at Mixtral's
+training batch (B4 S4096 H32/Hkv8). In the kernels line, the forward's
 ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` and
 ``tflops`` are taken at the serving shape and ``ms_train``,
 ``plain_ms_train``, ``bound_ms_train``, ``bound_by_train``,
@@ -224,6 +255,9 @@ SHARDED_SERVE = {"batch": 4, "prompt": 2048, "new_tokens": 8}
 BERT_SHAPES = {"bert_b8_h16": (8, 512, 16, 16, 64, False),
                "bert_tp2_b8_h8": (8, 512, 8, 8, 64, False)}
 PP_SHAPES = {"pp2_tp2_stage_mb": (2, 4096, 16, 4, 128, True)}
+# Mixtral's training batch (the twin's 4 rows x 4096 on one card or one ep
+# group): the kernels' new shape in phase 11; serving's prefill is phase 4's.
+MIXTRAL_SHAPES = {"mixtral_train_b4_s4096": (4, 4096, 32, 8, 128, True)}
 # The env block the scheduler writes for a one-pod gang (pod_tpu_env's keys).
 POD_ENV = {"TPU_VISIBLE_CHIPS": "0", "TPU_WORKER_ID": "0", "JAX_PROCESS_ID": "0",
            "TPU_WORKER_HOSTNAMES": "localhost", "JAX_COORDINATOR_ADDRESS": "localhost:8476",
@@ -251,6 +285,16 @@ BERT_LARGE = {"batch": 8, "warmup": 2, "timed": 4}
 # model, seeds and batches on one card.
 PIPELINE = {"model": "llama8b", "layers": 8, "batch": 8, "seq": 4096, "microbatches": 4,
             "steps": 3}
+# Phase 11: (a) a small f32 Mixtral that reaches the kernels (S256, head_dim
+# 32), two twin steps on the card and the CPU, then 8 greedy tokens; (b)
+# Mixtral-8x7B's widths served at 16 layers (46.96 GB of bf16 weights); (c)
+# the twin's job at 2 layers (f32 masters and AdamW: 50.6 GB), 4 x 4096.
+MIXTRAL_SMALL = {"config": dict(vocab_size=512, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                                d_ff=256, n_experts=4, max_seq_len=256), "batch": 2,
+                 "steps": 2, "new_tokens": 8}
+MIXTRAL_SERVE = {"model": "mixtral_8x7b", "layers": 16, "batch": 4, "prompt": 2048,
+                 "new_tokens": 32, "requests": 2}
+MIXTRAL_TRAIN = {"layers": 2, "warmup": 2, "timed": 4}
 
 
 def log(phase: str, **fields) -> None:
@@ -551,9 +595,11 @@ def phase_kernels_bwd(seed: int) -> dict:
          ] + [(f"bwd_sp_cards{cards}", 1, SP_CHECK_SEQ, h, hkv, 128, True, torch.bfloat16)
               for cards, (_, h, hkv) in SP_SHAPES.items()
               ] + [(f"bwd_{label}", b, s, h, hkv, d, causal, torch.bfloat16)
-                   for label, (b, s, h, hkv, d, causal) in {**BERT_SHAPES, **PP_SHAPES}.items()]
+                   for label, (b, s, h, hkv, d, causal) in {**BERT_SHAPES, **PP_SHAPES,
+                                                            **MIXTRAL_SHAPES}.items()]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    main = {"tp_shapes": [], "sp_shapes": [], "bert_shapes": [], "pp_shapes": []}
+    main = {"tp_shapes": [], "sp_shapes": [], "bert_shapes": [], "pp_shapes": [],
+            "mixtral_shapes": []}
     for name, b, s, h, hkv, d, causal, dtype in cases:
         q = torch.randn(b, s, h, d, device="cuda", dtype=dtype, generator=gen)
         k = torch.randn(b, s, hkv, d, device="cuda", dtype=dtype, generator=gen)
@@ -604,15 +650,15 @@ def phase_kernels_bwd(seed: int) -> dict:
             main["dkdv_max_abs_err"] = max(fields["dk_max_abs_err"], fields["dv_max_abs_err"])
             main["dq_max_abs_err"] = fields["dq_max_abs_err"]
             main.update(time_bwd(q, k, v, out, do, lse, delta, causal))
-        elif name.startswith(("bwd_tp", "bwd_bert", "bwd_pp")):
+        elif name.startswith(("bwd_tp", "bwd_bert", "bwd_pp", "bwd_mixtral")):
             # One rank of a tp gang, BERT's attention, a pipeline stage's
-            # microbatch: the forward held and all three timed.
+            # microbatch, Mixtral's batch: the forward held and all three timed.
             fwd = check_fwd(name.replace("bwd_", "fwd_"), q, k, v, causal, out, lse)
             torch.cuda.empty_cache()
             fwd.update(time_fwd(q, k, v, causal))
             log("kernels", **fwd)
             label = name[len("bwd_"):]
-            group = next(g for g in ("tp", "bert", "pp") if label.startswith(g))
+            group = next(g for g in GROUPS if label.startswith(g))
             row = {"tp": int(label[2:])} if group == "tp" else {"label": label}
             main[f"{group}_shapes"].append({
                 **row, "shape": [b, s, h, hkv, d], "causal": causal, "fwd": fwd,
@@ -1296,10 +1342,11 @@ def launch_gang(module: str, argv: list, ranks: int) -> list:
     return [m.groups() for m in _TWIN_STEP.finditer(proc.stdout)]
 
 
-def check_gang(name: str, one: list, lines: list, ranks: int, launches: int, **fields) -> None:
+def check_gang(name: str, one: list, lines: list, ranks: int, launches, **fields) -> None:
     """Hold a launched gang's step lines to the one-card run ``one``: every
     rank reports the same loss, within GANG_TOL of one card's, and launched
-    each kernel ``launches`` times a step; logs the step times."""
+    each kernel ``launches`` times a step (a number, or one per kernel);
+    logs the step times."""
     import ast
 
     if len(lines) != ranks * len(one):
@@ -1315,7 +1362,8 @@ def check_gang(name: str, one: list, lines: list, ranks: int, launches: int, **f
             raise AssertionError(f"{name} step {i}: gang loss {losses[-1]} vs one card {r['loss']}")
         step_ms.append(max(float(st[2]) for st in mine))
         for st in mine:
-            if set(ast.literal_eval(st[3]).values()) != {launches}:
+            got = ast.literal_eval(st[3])
+            if got != (launches if isinstance(launches, dict) else dict.fromkeys(got, launches)):
                 raise AssertionError(f"{name} step {i}: a rank launched {st[3]}, not {launches}")
     mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
     one_ms = sum(r["step_ms"] for r in one[1:]) / len(one[1:])
@@ -1329,15 +1377,15 @@ def phase_gang() -> int:
     module docstring, phase 8): every dryrun row that fits as an NCCL gang
     of 2 ranks, or 4 with four cards (the sequence rows then launch the
     kernels on every rank, and the pipeline rows on every stage); with four
-    cards, also the longctx and pipeline twins as the scheduler would start
-    them on a pod granted four cards: the pod's launcher on a one-pod,
+    cards, also the longctx, pipeline and Mixtral twins as the scheduler
+    would start them on a pod granted four cards: the pod's launcher on a one-pod,
     four-card bind info, one process per card, whose losses must come
     within GANG_TOL of the same model, seeds and batches on one card.
     Returns the ranks of the gang (1, and nothing run, on one card)."""
     import torch
 
     from hivedscheduler_tpu_torch.tools import dryrun
-    from hivedscheduler_tpu_torch.workloads import train_longctx, train_pp
+    from hivedscheduler_tpu_torch.workloads import train_longctx, train_mixtral, train_pp
 
     count = torch.cuda.device_count()
     if count < 2:
@@ -1380,6 +1428,18 @@ def phase_gang() -> int:
     # Each stage holds layers / pp layers and runs each once a microbatch.
     check_gang("pipeline", one, steps, ranks, pl["layers"] // mesh.pp * pl["microbatches"],
                mesh=dataclasses.asdict(mesh), **pl)
+
+    # The Mixtral twin at ep 4 x fsdp 1: every rank holds all 4 rows, as
+    # one card does, and runs two of the eight experts.
+    layers = MIXTRAL_TRAIN["layers"]
+    argv = ["--layers", str(layers), "--steps", "3"]
+    one = train_mixtral.main(argv)  # this process, card 0
+    torch.cuda.empty_cache()
+    steps = launch_gang("hivedscheduler_tpu_torch.workloads.train_mixtral", argv, ranks)
+    check_gang("mixtral", one, steps, ranks,
+               {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers, "flash_bwd_dq": layers},
+               mesh=dataclasses.asdict(train_mixtral.mesh_config(ranks)), layers=layers,
+               batch=[train_mixtral.ROWS_PER_SHARD, train_mixtral.SEQ])
     return ranks
 
 
@@ -1416,33 +1476,22 @@ def phase_longctx() -> dict:
     return launches
 
 
-def phase_bert(seed: int, profile: bool) -> dict:
-    """BERT (see the module docstring, phase 10): (a) a small f32 BERT on the
-    card against the CPU; (b) BERT-large at its published size through the
-    twin's step, with ``profile`` its device time by kernel over one more
-    step. Returns each kernel's launches in (b)."""
-    import numpy as np
-    import torch
-
-    from hivedscheduler_tpu_torch.models import bert, convert, perf, transformer
+def small_card_vs_cpu(phase: str, cpu_params, card_params, make_optimizer, step,
+                      n_steps: int, n_layers: int) -> dict:
+    """``n_steps`` of ``step(params, optimizer, device) -> loss`` from the
+    same f32 weights on the CPU and on the card, under full remat: the
+    losses, the step-1 gradients and the parameters after the steps must
+    agree within TRAIN_TOL, and each card step must launch the forward
+    kernel twice a layer and each backward kernel once. Logs the fields."""
+    from hivedscheduler_tpu_torch.models import transformer
     from hivedscheduler_tpu_torch.ops import attention as A
-    from hivedscheduler_tpu_torch.workloads import train_bert
-
-    # (a) Small enough to run on the CPU, large enough to reach the kernels
-    # (S >= 256, head_dim 32): two steps from the same weights on each side.
-    config = bert.BertConfig(**BERT_SMALL["config"], dtype=torch.float32)
-    cpu_params = bert.init(config, torch.Generator().manual_seed(seed), "cpu")
-    card_params = convert.params_from_jax(convert.params_to_numpy(cpu_params), device="cuda")
-    tokens, targets = train_bert.masked_batch(np.random.default_rng(seed + 5), BERT_SMALL["batch"],
-                                              config.max_seq_len, config.vocab_size)
 
     def run(params, device):
-        opt = train_bert.make_optimizer(params)
+        opt = make_optimizer(params)
         losses, grads, launches = [], None, []
-        for _ in range(BERT_SMALL["steps"]):
+        for _ in range(n_steps):
             before = A.kernel_launches()
-            losses.append(float(train_bert.train_step(params, opt, tokens.to(device),
-                                                      targets.to(device), config)))
+            losses.append(float(step(params, opt, device)))
             after = A.kernel_launches()
             launches.append({k: after[k] - before[k] for k in after})
             if grads is None:
@@ -1460,15 +1509,40 @@ def phase_bert(seed: int, profile: bool) -> dict:
     fields = {"losses_cpu": cpu_losses, "losses_card": card_losses, "loss_gap": loss_gap,
               "grad_max_rel": grad_rel, "param_mean_abs_diff": param_mean, "tol": TRAIN_TOL,
               "launches_per_step": card_launches}
-    # Full remat: the forward kernel runs twice a layer, each backward once.
-    want = {"flash_fwd": 2 * config.n_layers, "flash_bwd_dkdv": config.n_layers,
-            "flash_bwd_dq": config.n_layers}
+    want = {"flash_fwd": 2 * n_layers, "flash_bwd_dkdv": n_layers, "flash_bwd_dq": n_layers}
     if any(n != want for n in card_launches):
-        raise AssertionError(f"small BERT step launches {card_launches}, not {want}")
+        raise AssertionError(f"small {phase} step launches {card_launches}, not {want}")
     if (loss_gap > TRAIN_TOL["loss"] or grad_rel > TRAIN_TOL["grad_max_rel"]
             or param_mean > TRAIN_TOL["param_mean"]):
-        raise AssertionError(f"BERT on the card disagrees with the CPU: {fields}")
-    log("bert", step="small_card_vs_cpu", **fields)
+        raise AssertionError(f"{phase} on the card disagrees with the CPU: {fields}")
+    log(phase, step="small_card_vs_cpu", **fields)
+    return fields
+
+
+def phase_bert(seed: int, profile: bool) -> dict:
+    """BERT (see the module docstring, phase 10): (a) a small f32 BERT on the
+    card against the CPU; (b) BERT-large at its published size through the
+    twin's step, with ``profile`` its device time by kernel over one more
+    step. Returns each kernel's launches in (b)."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import bert, convert, perf
+    from hivedscheduler_tpu_torch.ops import attention as A
+    from hivedscheduler_tpu_torch.workloads import train_bert
+
+    # (a) Small enough to run on the CPU, large enough to reach the kernels
+    # (S >= 256, head_dim 32): two steps from the same weights on each side.
+    config = bert.BertConfig(**BERT_SMALL["config"], dtype=torch.float32)
+    cpu_params = bert.init(config, torch.Generator().manual_seed(seed), "cpu")
+    card_params = convert.params_from_jax(convert.params_to_numpy(cpu_params), device="cuda")
+    tokens, targets = train_bert.masked_batch(np.random.default_rng(seed + 5), BERT_SMALL["batch"],
+                                              config.max_seq_len, config.vocab_size)
+    small_card_vs_cpu(
+        "bert", cpu_params, card_params, train_bert.make_optimizer,
+        lambda params, opt, device: train_bert.train_step(params, opt, tokens.to(device),
+                                                          targets.to(device), config),
+        BERT_SMALL["steps"], config.n_layers)
     del card_params, cpu_params
 
     # (b) BERT-large, nothing cut, on one fixed masked batch.
@@ -1517,6 +1591,141 @@ def phase_bert(seed: int, profile: bool) -> dict:
     del params, optimizer
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_mixtral(seed: int, profile: bool) -> dict:
+    """Mixtral (see the module docstring, phase 11): (a) a small f32 Mixtral
+    on the card against the CPU; (b) Mixtral-8x7B's widths served at 16
+    layers; (c) the twin's job at 2 layers. With ``profile``, device time
+    by kernel over one more request and one more step. Returns each
+    kernel's launches in (b) and (c)."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch import serve
+    from hivedscheduler_tpu_torch.models import convert, generate, mixtral, perf
+    from hivedscheduler_tpu_torch.ops import attention as A
+    from hivedscheduler_tpu_torch.workloads import train_mixtral
+
+    # (a) Two twin steps from the same weights on each side, then greedy
+    # tokens through the ffn hook.
+    sm = MIXTRAL_SMALL
+    config = mixtral.MixtralConfig(**sm["config"], dtype=torch.float32)
+    cpu_params = mixtral.init(config, torch.Generator().manual_seed(seed), "cpu")
+    card_params = convert.params_from_jax(convert.params_to_numpy(cpu_params), device="cuda")
+    rng = np.random.default_rng(seed + 7)
+    tokens = torch.from_numpy(serve.synthetic_tokens(rng, sm["batch"], config.max_seq_len,
+                                                     config.vocab_size))
+    small_card_vs_cpu(
+        "mixtral", cpu_params, card_params, train_mixtral.make_optimizer,
+        lambda params, opt, device: train_mixtral.train_step(params, opt, tokens.to(device),
+                                                             config),
+        sm["steps"], config.n_layers)
+    ffn = mixtral.decode_ffn(config)
+    new = [generate.generate(params, tokens.to(device), config, sm["new_tokens"],
+                             ffn=ffn)[:, config.max_seq_len:].cpu()
+           for params, device in ((cpu_params, "cpu"), (card_params, "cuda"))]
+    if not torch.equal(*new):
+        raise AssertionError(f"greedy tokens differ: CPU {new[0].tolist()}, card {new[1].tolist()}")
+    log("mixtral", step="small_greedy_tokens_equal", tokens=new[1].tolist())
+    del card_params, cpu_params
+
+    # (b) Serving at every width, 16 layers, phase 4's traffic.
+    sv = MIXTRAL_SERVE
+    t0 = time.perf_counter()
+    config, params = serve.build(sv["model"], seed, "cuda", layers=sv["layers"])
+    ffn = serve.decode_hook(config)
+    torch.cuda.synchronize()
+    log("mixtral", step="serve_init", n_layers=config.n_layers, n_params=perf.n_params(params),
+        weights_gib=torch.cuda.memory_allocated() / 2**30, seconds=time.perf_counter() - t0)
+    rng = np.random.default_rng(seed + 8)
+
+    def prompt(batch, length):
+        return torch.from_numpy(serve.synthetic_tokens(rng, batch, length,
+                                                       config.vocab_size)).cuda()
+
+    serve.run_request(params, prompt(1, 256), config, 2, ffn=ffn)  # warm-up
+    prompts = [prompt(sv["batch"], sv["prompt"]) for _ in range(sv["requests"])]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    results = [serve.run_request(params, p, config, sv["new_tokens"], ffn=ffn) for p in prompts]
+    serve_launches = A.kernel_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if serve_launches["flash_fwd"] != config.n_layers * sv["requests"]:
+        raise AssertionError(f"Mixtral prefill launched the flash kernel "
+                             f"{serve_launches['flash_fwd']} times for {sv['requests']} "
+                             f"prefills of {config.n_layers} layers")
+    for r, res in enumerate(results):
+        toks = res["tokens"]
+        if toks.shape != (sv["batch"], sv["new_tokens"]):
+            raise AssertionError(f"request {r}: tokens of shape {tuple(toks.shape)}")
+        if not ((toks >= 0) & (toks < config.vocab_size)).all():
+            raise AssertionError(f"request {r}: token ids out of range")
+        log("mixtral", step="request", request=r, ttft_ms=res["ttft_ms"],
+            decode_tok_s=res["decode_tok_s"], flash_launches=res["flash_launches"])
+    # The prefill's last logits against the uncached forward() over the same
+    # prompt: the same tokens, so the same capacity and routing.
+    with torch.inference_mode():
+        cache = generate.init_cache(config, sv["batch"], sv["prompt"], "cuda")
+        last, _ = generate.prefill(params, prompts[-1], cache, config, ffn=ffn)
+        del cache
+        full = mixtral.forward(params, prompts[-1], config)[0][:, -1]
+    gap = (last - full).abs().max().item()
+    if not (torch.isfinite(last).all() and gap <= MAX_LOGIT_GAP):
+        raise AssertionError(f"prefill logits lie {gap} from forward()'s (limit {MAX_LOGIT_GAP})")
+    argmax_agree = int((last.argmax(-1) == full.argmax(-1)).sum())
+    log("mixtral", step="serve_summary", **sv, launches=serve_launches,
+        prefill_vs_forward_max_abs=gap, argmax_agree_rows=argmax_agree,
+        peak_memory_gib=peak_gib)
+    if profile:
+        profile_request(params, prompts[-1], config, results[-1], sv["new_tokens"],
+                        window="mixtral_", ffn=ffn)
+    del params, last, full
+    torch.cuda.empty_cache()
+
+    # (c) The twin's job, 2 layers at every width.
+    tr = MIXTRAL_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    recs = train_mixtral.main(["--layers", str(tr["layers"]),
+                               "--steps", str(tr["warmup"] + tr["timed"])])
+    train_launches = A.kernel_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in recs]
+    base = mixtral.mixtral_8x7b()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite Mixtral loss: {losses}")
+    expected = float(np.log(base.vocab_size)) + 0.5 + 0.01 * tr["layers"]
+    if abs(losses[0] - expected) > LOSS_BAND:
+        raise AssertionError(f"first loss {losses[0]} is not within {LOSS_BAND} of {expected}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"Mixtral loss did not fall: {losses}")
+    want = {"flash_fwd": 2 * tr["layers"], "flash_bwd_dkdv": tr["layers"],
+            "flash_bwd_dq": tr["layers"]}
+    for r in recs:
+        if r["launches"] != want:
+            raise AssertionError(f"Mixtral step {r['step']} launched {r['launches']}, not {want}")
+    timed = [r["step_ms"] for r in recs[tr["warmup"]:]]
+    step_ms = sum(timed) / len(timed)
+    rows = train_mixtral.ROWS_PER_SHARD
+    log("mixtral", step="train_summary", **tr, batch=[rows, train_mixtral.SEQ], losses=losses,
+        step_ms=timed, step_ms_mean=step_ms,
+        tokens_per_s=rows * train_mixtral.SEQ / (step_ms * 1e-3), peak_memory_gib=peak_gib,
+        launches=train_launches)
+    if profile:
+        config = dataclasses.replace(base, n_layers=tr["layers"])
+        params = mixtral.init(config, torch.Generator(device="cuda").manual_seed(seed), "cuda",
+                              torch.float32)
+        optimizer = train_mixtral.make_optimizer(params)
+        tokens = torch.from_numpy(serve.synthetic_tokens(
+            np.random.default_rng(seed + 9), rows, train_mixtral.SEQ, base.vocab_size)).cuda()
+        for _ in range(2):  # warm-up
+            float(train_mixtral.train_step(params, optimizer, tokens, config))
+        profile_step(lambda: train_mixtral.train_step(params, optimizer, tokens, config),
+                     step_ms, "mixtral_step")
+        del params, optimizer
+    torch.cuda.empty_cache()
+    return {k: serve_launches[k] + train_launches[k] for k in train_launches}
 
 
 def device_time_rows(prof) -> list:
@@ -1568,7 +1777,7 @@ def profile_step(step, unprofiled_ms: float, window: str) -> None:
 
 
 def profile_request(params, prompt, config, unprofiled: dict, new_tokens: int = SERVE["new_tokens"],
-                    mesh=None, window: str = "") -> None:
+                    mesh=None, window: str = "", ffn=None) -> None:
     """Device time by kernel over one request (sharded on ``mesh``), prefill
     and decode apart (torch.profiler, kernel events only). The idle share is
     taken against the same request's wall time without the profiler
@@ -1579,7 +1788,7 @@ def profile_request(params, prompt, config, unprofiled: dict, new_tokens: int = 
     from hivedscheduler_tpu_torch.models import generate
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    stream = generate.generate_stream(params, prompt, config, new_tokens, mesh=mesh)
+    stream = generate.generate_stream(params, prompt, config, new_tokens, mesh=mesh, ffn=ffn)
     with profile(activities=activities) as prefill:
         next(stream)
         torch.cuda.synchronize()
@@ -1614,10 +1823,15 @@ def sp_shapes(kb: dict, kind: str) -> list:
             for r in kb["sp_shapes"]]
 
 
+# Phase 3's shape groups that hold and time all three kernels.
+GROUPS = ("tp", "bert", "pp", "mixtral")
+
+
 def rank_shapes(kb: dict, group: str, kind: str) -> list:
     """One kernel's numbers at phase 3's per-rank shapes of ``group`` ("tp":
     a tp gang's rank; "bert": BERT-large's attention; "pp": a pipeline
-    stage's microbatch), for the kernels line. ``library_ms``: SDPA's
+    stage's microbatch; "mixtral": Mixtral's training batch), for the
+    kernels line. ``library_ms``: SDPA's
     forward for the forward kernel, its whole backward for the backward
     ones."""
     rows = []
@@ -1642,8 +1856,9 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over one request, "
                              "over one training step and over one step of the "
-                             "perf harness's model, unsharded and sharded, and "
-                             "over one BERT-large step")
+                             "perf harness's model, unsharded and sharded, "
+                             "over one BERT-large step and over Mixtral's "
+                             "request and step")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel checks and timings (phase 3)")
     parser.add_argument("--gang-only", action="store_true",
@@ -1693,6 +1908,7 @@ def main() -> int:
     sh = timed("sharded", phase_sharded, args.seed, args.profile, s, t)
     lc = timed("longctx", phase_longctx)
     bt = timed("bert", phase_bert, args.seed, args.profile)
+    mx = timed("mixtral", phase_mixtral, args.seed, args.profile)
 
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     kernels = [{
@@ -1701,11 +1917,11 @@ def main() -> int:
         "source": source + "flash_fwd.cu",
         "replaces": "hivedscheduler_tpu/ops/attention.py:133",
         "launches": (s["launches"] + t["launches"]["flash_fwd"] + w["flash_fwd"] + p["flash_fwd"]
-                     + sh["flash_fwd"] + lc["flash_fwd"] + bt["flash_fwd"]),
+                     + sh["flash_fwd"] + lc["flash_fwd"] + bt["flash_fwd"] + mx["flash_fwd"]),
         "launches_by_path": {"serve": s["launches"], "train": t["launches"]["flash_fwd"],
                              "workloads": w["flash_fwd"], "perf": p["flash_fwd"],
                              "sharded": sh["flash_fwd"], "longctx": lc["flash_fwd"],
-                             "bert": bt["flash_fwd"]},
+                             "bert": bt["flash_fwd"], "mixtral": mx["flash_fwd"]},
         # Held at the serving shape and at the training shape.
         "max_abs_err": max(k["o_max_abs_err"], kb["fwd"]["o_max_abs_err"]),
         **{key + suffix: fields[src] for suffix, fields in (("", k), ("_train", kb["fwd"]))
@@ -1713,7 +1929,7 @@ def main() -> int:
                             ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
                             ("library_ms", "library_ms"), ("tflops", "kernel_tflops"))},
         # One rank of a tp gang at the training shape (phase 3).
-        **{f"{group}_shapes": rank_shapes(kb, group, "fwd") for group in ("tp", "bert", "pp")},
+        **{f"{group}_shapes": rank_shapes(kb, group, "fwd") for group in GROUPS},
         "sp_shapes": sp_shapes(kb, "fwd"),
     }]
     for name, kind, line in (("flash_bwd_dkdv", "dkdv", 201), ("flash_bwd_dq", "dq", 278)):
@@ -1722,10 +1938,11 @@ def main() -> int:
             "route": "cuda",
             "source": source + "flash_bwd.cu",
             "replaces": f"hivedscheduler_tpu/ops/attention.py:{line}",
-            "launches": t["launches"][name] + w[name] + p[name] + sh[name] + lc[name] + bt[name],
+            "launches": (t["launches"][name] + w[name] + p[name] + sh[name] + lc[name] + bt[name]
+                         + mx[name]),
             "launches_by_path": {"train": t["launches"][name], "workloads": w[name],
                                  "perf": p[name], "sharded": sh[name], "longctx": lc[name],
-                                 "bert": bt[name]},
+                                 "bert": bt[name], "mixtral": mx[name]},
             "max_abs_err": kb[f"{kind}_max_abs_err"],
             "ms": kb[kind]["ms"],
             "plain_ms": kb[kind]["plain_ms"],
@@ -1734,7 +1951,7 @@ def main() -> int:
             # SDPA's whole backward (dQ, dK and dV in one call): compare it
             # with the two kernels' sum.
             "library_ms": kb["library_ms"],
-            **{f"{group}_shapes": rank_shapes(kb, group, kind) for group in ("tp", "bert", "pp")},
+            **{f"{group}_shapes": rank_shapes(kb, group, kind) for group in GROUPS},
             "sp_shapes": sp_shapes(kb, kind),
         })
     print(smi)

@@ -30,8 +30,13 @@ flash kernels, ``parallel/ring.py``; the twin
 ``workloads/train_longctx.py``). Gangs also split the layer stack into
 GPipe stages (``parallel/pipeline.py``, pp and pp x sp; the twin
 ``workloads/train_pp.py``), and BERT-large trains on one card or a dp x
-fsdp x tp gang (``models/bert.py``, ``workloads/train_bert.py``). Expert
-parallelism (Mixtral) is not ported yet.
+fsdp x tp gang (``models/bert.py``, ``workloads/train_bert.py``). The
+Mixtral MoE (``models/mixtral.py``: top-2 routing over the gang's tokens,
+dispatch and combine by index) trains and serves on one card or a gang
+with expert parallelism over ep (the twin ``workloads/train_mixtral.py``;
+``python -m hivedscheduler_tpu_torch.serve --model mixtral_8x7b``, its
+routed FFN in ``generate``'s ``ffn`` hook); on the CPU, ``--model tiny``
+and ``--model mixtral_tiny`` with ``--device cpu`` run them at test size.
 """
 
 from __future__ import annotations

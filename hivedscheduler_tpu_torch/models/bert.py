@@ -179,12 +179,12 @@ def _block(x: torch.Tensor, layer: Params, config: BertConfig, mesh: Any = None)
     over every position, then the GELU MLP. On an active mesh ``layer``
     holds this rank's tp shards (whole over fsdp)."""
     c = config
-    h = sharding.copy_to_tp(layer_norm(x, layer["ln1_scale"], layer["ln1_bias"]), mesh)
+    h = sharding.copy_to(layer_norm(x, layer["ln1_scale"], layer["ln1_bias"]), mesh)
     q, k, v = (h @ _qkv_weight(layer["wqkv"], c.d_model, mesh)).chunk(3, dim=-1)
     attn = sharding.sharded_mha(q, k, v, mesh, c.n_heads, c.n_heads, causal=False)
-    x = x + sharding.reduce_from_tp(attn @ layer["wo"], mesh)
-    h = sharding.copy_to_tp(layer_norm(x, layer["ln2_scale"], layer["ln2_bias"]), mesh)
-    return x + sharding.reduce_from_tp(ffn(h, layer["w_up"], layer["w_down"]), mesh)
+    x = x + sharding.reduce_from(attn @ layer["wo"], mesh)
+    h = sharding.copy_to(layer_norm(x, layer["ln2_scale"], layer["ln2_bias"]), mesh)
+    return x + sharding.reduce_from(ffn(h, layer["w_up"], layer["w_down"]), mesh)
 
 
 def _sharded_block(x: torch.Tensor, layer: Params, config: BertConfig, mesh: Any) -> torch.Tensor:

@@ -18,20 +18,25 @@ Counterpart of ``hivedscheduler_tpu/models/generate.py``, in eager PyTorch:
   DTensors (tp shards, gathered over fsdp a layer at a time), the prompt
   and the cache hold this rank's batch rows and its KV heads, the flash
   prefill runs on that block, and the logits are gathered over tp before
-  sampling, so the ranks of a tp group sample from the same logits.
+  sampling, so the ranks of a tp group sample from the same logits;
+- ``ffn``: the hook ``ffn(h_normed, layer, mesh)`` that replaces the dense
+  SwiGLU, as in the JAX package: how the MoE family
+  (``mixtral.decode_ffn``) rides the same cache machinery. On a mesh it
+  gets the layer whole over fsdp and returns the whole output.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Iterator, Optional, Tuple
+from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import Device, resolve_device
 from ..parallel import sharding
+from . import model_of
 from ..ops.attention import NEG_INF, mha
 from .quantize import quantized_matmul as _mm
 from .transformer import (
@@ -107,12 +112,14 @@ def _block_cached(
     config: TransformerConfig,
     attn_mode: str = "auto",
     mesh: Any = None,
+    ffn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """One decoder block over cached KV. ``attn_mode``: "flash" = fresh-cache
     prefill, prompt-only causal attention through ``mha``; "cached" =
     attention over the cache (decode, chunked prefill); "auto" = "flash"
     when ``pos == 0``, else "cached". On an active mesh ``layer`` holds this
-    rank's tp shards, as in ``transformer._block``."""
+    rank's tp shards, as in ``transformer._block``. ``ffn``: the hook in
+    place of the dense SwiGLU."""
     if attn_mode not in ("auto", "flash", "cached"):
         raise ValueError(f"unknown attn_mode {attn_mode!r}")
     c = config
@@ -140,10 +147,12 @@ def _block_cached(
     attn = attn.reshape(b, t, -1)
     if gathered:
         attn = attn.narrow(2, mesh.get_local_rank("tp") * width, width)
-    x = x + sharding.reduce_from_tp(_mm(attn, layer["wo"]), mesh)
+    x = x + sharding.reduce_from(_mm(attn, layer["wo"]), mesh)
     hh = rms_norm(x, layer["ln2"])
+    if ffn is not None:
+        return x + ffn(hh, layer, mesh)
     out = _mm(F.silu(_mm(hh, layer["w_gate"])) * _mm(hh, layer["w_up"]), layer["w_down"])
-    return x + sharding.reduce_from_tp(out, mesh)
+    return x + sharding.reduce_from(out, mesh)
 
 
 @torch.inference_mode()
@@ -155,6 +164,7 @@ def _forward_cached(
     attn_mode: str = "auto",
     last_only: bool = False,
     mesh: Any = None,
+    ffn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Logits [B, T, V] f32 (``last_only``: [B, 1, V], the LM head applied to
     the last position alone) and the cache, advanced by T. On an active
@@ -168,9 +178,10 @@ def _forward_cached(
         )
     if sharding.is_active(mesh):
         local = sharding.to_local(params)
+        axes = model_of(c).logical_axes(c)["layers"]
 
         def layer_at(i):
-            return gather_layer(layer(local["layers"], i), c, mesh)
+            return gather_layer(layer(local["layers"], i), c, mesh, axes)
 
         x = sharding.embed_lookup(local["embed"], tokens, mesh, c.dtype)
         ln_f = local["ln_f"].to(c.dtype)
@@ -185,7 +196,7 @@ def _forward_cached(
             return layer(params["layers"], i)
 
     for i in range(c.n_layers):
-        x = _block_cached(x, layer_at(i), cache.k[i], cache.v[i], pos, c, attn_mode, mesh)
+        x = _block_cached(x, layer_at(i), cache.k[i], cache.v[i], pos, c, attn_mode, mesh, ffn)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, ln_f)
@@ -203,6 +214,7 @@ def prefill(
     config: TransformerConfig,
     chunked: Optional[bool] = None,
     mesh: Any = None,
+    ffn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Fill the cache with the prompt; returns (last-position logits [B, V],
     cache). A fresh cache takes the flash program, a cache with history the
@@ -219,7 +231,7 @@ def prefill(
             f"{cache.length} positions (use chunked=None or True)"
         )
     logits, cache = _forward_cached(
-        params, prompt, cache, config, mode, last_only=True, mesh=mesh
+        params, prompt, cache, config, mode, last_only=True, mesh=mesh, ffn=ffn
     )
     return logits[:, -1], cache
 
@@ -230,9 +242,10 @@ def decode_step(
     cache: KVCache,
     config: TransformerConfig,
     mesh: Any = None,
+    ffn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decoding step; returns (logits [B, V], cache)."""
-    logits, cache = _forward_cached(params, token[:, None], cache, config, mesh=mesh)
+    logits, cache = _forward_cached(params, token[:, None], cache, config, mesh=mesh, ffn=ffn)
     return logits[:, 0], cache
 
 
@@ -278,6 +291,7 @@ def generate_stream(
     top_k: int = 0,
     top_p: float = 1.0,
     mesh: Any = None,
+    ffn: Optional[Callable] = None,
 ) -> Iterator[torch.Tensor]:
     """Yield the ``max_new_tokens`` new tokens, each [B], as they are made:
     a flash prefill of a fresh cache, then one decode step per token. On
@@ -285,13 +299,13 @@ def generate_stream(
     group must pass generators in the same state."""
     b, t = prompt.shape
     cache = init_cache(config, b, t + max_new_tokens, device=prompt.device, mesh=mesh)
-    logits, cache = prefill(params, prompt, cache, config, mesh=mesh)
+    logits, cache = prefill(params, prompt, cache, config, mesh=mesh, ffn=ffn)
     token = sample_logits(logits, generator, temperature, top_k, top_p)
     for i in range(max_new_tokens):
         yield token
         if i == max_new_tokens - 1:
             break
-        logits, cache = decode_step(params, token, cache, config, mesh)
+        logits, cache = decode_step(params, token, cache, config, mesh, ffn)
         token = sample_logits(logits, generator, temperature, top_k, top_p)
 
 
@@ -304,11 +318,13 @@ def generate(
     generator: Optional[torch.Generator] = None,
     top_k: int = 0,
     top_p: float = 1.0,
+    ffn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Greedy (temperature=0) or sampled generation; returns
-    [B, T_prompt + max_new_tokens]."""
+    [B, T_prompt + max_new_tokens]. ``ffn``: the MoE hook
+    (``mixtral.decode_ffn``)."""
     new = generate_stream(
-        params, prompt, config, max_new_tokens, temperature, generator, top_k, top_p
+        params, prompt, config, max_new_tokens, temperature, generator, top_k, top_p, ffn=ffn
     )
     return torch.cat([prompt] + [tok[:, None].to(prompt.dtype) for tok in new], dim=1)
 
@@ -322,12 +338,13 @@ def generate_scan(
     temperature: float = 1.0,
     top_k: int = 0,
     top_p: float = 1.0,
+    ffn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Sampled generation under the JAX package's name and defaults. JAX
     compiles it as one program; eager PyTorch runs the same loop as
     ``generate``."""
     return generate(
-        params, prompt, config, max_new_tokens, temperature, generator, top_k, top_p
+        params, prompt, config, max_new_tokens, temperature, generator, top_k, top_p, ffn
     )
 
 

@@ -181,13 +181,16 @@ def train_step(
 
 
 def shardings_for(
-    config: transformer.TransformerConfig, mesh: Any
+    config: Any, mesh: Any, model: Any = transformer
 ) -> Tuple[Params, Dict[str, Any]]:
-    """The placements of a train state: (the parameters', AdamW's state).
-    AdamW's two moments take their parameter's placements leaf for leaf
-    (``zeros_like`` of a DTensor parameter); its ``step`` is a replicated
-    CPU scalar (None here)."""
-    param_pl = sharding.tree_shardings(sharding.param_mesh(mesh), transformer.logical_axes(config))
+    """The placements of a train state: (the parameters', AdamW's state),
+    from the model's ``logical_axes`` (``model``: this package's
+    ``transformer`` by default, ``models.mixtral`` for the MoE family, as
+    in the JAX package). AdamW's two moments take their parameter's
+    placements leaf for leaf (``zeros_like`` of a DTensor parameter); its
+    ``step`` is a replicated CPU scalar (None here). Reads only the mesh's
+    axis names and sizes: nothing is allocated."""
+    param_pl = sharding.tree_shardings(sharding.param_mesh(mesh), model.logical_axes(config))
     return param_pl, {"exp_avg": param_pl, "exp_avg_sq": param_pl, "step": None}
 
 
@@ -198,18 +201,19 @@ def init_sharded(
     device: Device = None,
     learning_rate: float = 3e-4,
     weight_decay: float = 0.1,
+    model: Any = transformer,
 ) -> Tuple[Params, torch.optim.AdamW]:
     """f32 master parameters straight into their placements
-    (``transformer.init_distributed``: no rank ever holds more than one
-    whole leaf, and the values are ``transformer.init``'s from the same
-    generator) and their AdamW, whose moments take the placements of
-    :func:`shardings_for`. Returns (params, optimizer). On an inactive
-    mesh (one process, no group) they are ``transformer.init``'s plain
+    (``model.init_distributed``, ``transformer`` by default: no rank ever
+    holds more than one whole leaf, and the values are ``model.init``'s
+    from the same generator) and their AdamW, whose moments take the
+    placements of :func:`shardings_for`. Returns (params, optimizer). On an
+    inactive mesh (one process, no group) they are ``model.init``'s plain
     tensors, for the unsharded step."""
     if sharding.is_active(mesh):
-        params = transformer.init_distributed(config, mesh, generator, device, torch.float32)
+        params = model.init_distributed(config, mesh, generator, device, torch.float32)
     else:
-        params = transformer.init(config, generator, device, torch.float32)
+        params = model.init(config, generator, device, torch.float32)
     return params, make_optimizer(params, learning_rate, weight_decay)
 
 

@@ -281,14 +281,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def _block(
-    x: torch.Tensor, layer: Params, config: TransformerConfig, mesh: Any = None
-) -> torch.Tensor:
-    """One pre-norm block: attention (flash kernels via
-    ``sharding.sharded_mha``) + SwiGLU. On an active mesh ``layer`` holds
-    this rank's tp shards (whole over fsdp): q/k/v and the MLP's gate and
-    up products are column-parallel, ``wo`` and ``w_down`` row-parallel,
-    each followed by the tp all-reduce that GSPMD inserts in JAX.
+def attention(x: torch.Tensor, layer: Params, config: Any, mesh: Any = None) -> torch.Tensor:
+    """``x`` plus the pre-norm block's attention (flash kernels via
+    ``sharding.sharded_mha``), for any config with the decoder's head
+    fields (``models/mixtral.py`` shares it). On an active mesh ``layer``
+    holds this rank's tp shards (whole over fsdp): q/k/v are
+    column-parallel, ``wo`` row-parallel and followed by the tp all-reduce
+    that GSPMD inserts in JAX.
 
     With sp > 1, ``x`` is this rank's sequence shard: RoPE takes the
     shard's global positions (the JAX block sees the global sequence under
@@ -296,7 +295,7 @@ def _block(
     rank's whole heads."""
     c = config
     b, s, _ = x.shape
-    h = sharding.copy_to_tp(rms_norm(x, layer["ln1"]), mesh)
+    h = sharding.copy_to(rms_norm(x, layer["ln1"]), mesh)
     sp = sharding.axes_size("sp", mesh) if sharding.is_active(mesh) else 1
     if sp > 1:
         tp = sharding.axes_size("tp", mesh)
@@ -315,16 +314,26 @@ def _block(
             h @ layer["wq"], h @ layer["wk"], h @ layer["wv"], mesh, c.n_heads, c.n_kv_heads,
             rotary=lambda t: rope(t, positions, c.rope_theta),
         )
-    x = x + sharding.reduce_from_tp(attn @ layer["wo"], mesh)
-    h = sharding.copy_to_tp(rms_norm(x, layer["ln2"]), mesh)
+    return x + sharding.reduce_from(attn @ layer["wo"], mesh)
+
+
+def _block(
+    x: torch.Tensor, layer: Params, config: TransformerConfig, mesh: Any = None
+) -> torch.Tensor:
+    """One pre-norm block: :func:`attention` + SwiGLU, whose gate and up
+    products are column-parallel over tp and ``w_down`` row-parallel."""
+    x = attention(x, layer, config, mesh)
+    h = sharding.copy_to(rms_norm(x, layer["ln2"]), mesh)
     out = (F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])) @ layer["w_down"]
-    return x + sharding.reduce_from_tp(out, mesh)
+    return x + sharding.reduce_from(out, mesh)
 
 
-def gather_layer(layer: Params, config: TransformerConfig, mesh: Any) -> Params:
+def gather_layer(layer: Params, config: Any, mesh: Any, axes: Optional[Params] = None) -> Params:
     """One layer's shards, each cast to the compute dtype and gathered over
-    fsdp (its tp shard stays local): what ``_block`` takes on a mesh."""
-    axes = logical_axes(config)["layers"]
+    fsdp (its tp and ep shards stay local): what ``_block`` takes on a
+    mesh. ``axes``: the model's per-layer logical axes (default this
+    module's)."""
+    axes = logical_axes(config)["layers"] if axes is None else axes
     return {k: sharding.gather_param(v, sharding.fsdp_dim(axes[k][1:]), config.dtype, mesh)
             for k, v in layer.items()}
 
@@ -419,7 +428,7 @@ def logits_of(x: torch.Tensor, head: torch.Tensor, mesh: Any = None) -> torch.Te
     """The f32 logits of final hidden states under the head (on an active
     mesh the rank's tp shard of the vocab)."""
     if sharding.is_active(mesh):
-        x = sharding.copy_to_tp(x, mesh)
+        x = sharding.copy_to(x, mesh)
     return (x @ head).float()
 
 

@@ -19,9 +19,9 @@ local tensors (``DTensor.to_local``):
   a time (inside the layer's checkpoint, so backward gathers it again); its
   backward reduce-scatters the f32 gradient. ``dp`` replicates and
   :func:`reduce_gradients` all-reduces over it after backward.
-- Megatron tensor parallelism over ``tp``: :func:`copy_to_tp` before a
+- Megatron tensor parallelism over ``tp``: :func:`copy_to` before a
   column-parallel product (identity forward, all-reduce of the gradient),
-  :func:`reduce_from_tp` after a row-parallel one (all-reduce forward,
+  :func:`reduce_from` after a row-parallel one (all-reduce forward,
   identity backward).
 - :func:`sharded_mha` runs the flash kernels on the rank's (batch, heads)
   block, the counterpart of the JAX ``shard_map``.
@@ -40,7 +40,13 @@ the model runs this sharded code. A collective over an axis of one rank is
 the identity and is skipped, as GSPMD emits none, so a one-rank mesh runs
 the sharded code with no communication. Without a group (``mesh=None`` or
 the one-process mesh of ``make_mesh``) the model keeps its unsharded path.
-Expert parallelism (ep > 1) is a later slice of the port and raises.
+- Expert parallelism over ``ep`` (``models/mixtral.py``): the experts
+  shard over ep and the rows do not, so the ep peers hold the same tokens;
+  each runs its own experts on them, between :func:`copy_to` and
+  :func:`reduce_from` over ep, as tp's products run between those over
+  tp. A leaf replicated over ep gets its whole gradient on every ep rank
+  and is never summed there. The router's load statistics are sums over
+  every token of the gang (:func:`all_reduce_sum`, :func:`gather_tokens`).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
 from ..ops import attention
+from .mesh import MESH_AXES
 
 # logical dim name -> mesh axis (or None = replicate); the JAX package's
 # table. Batch over (dp, fsdp), sequence over sp, Megatron tp over
@@ -142,19 +149,21 @@ def is_active(mesh: Any) -> bool:
 
 
 def check_supported(mesh: Any) -> None:
-    """Raise for the axes whose parallelism is a later slice of the port."""
-    if axes_size("ep", mesh) > 1:
-        raise NotImplementedError("ep > 1 needs ROADMAP queue 1 item 12 (expert parallelism)")
+    """Raise for a mesh whose axes are not the port's six (the rule table
+    names them); every parallelism of the six is ported."""
+    if tuple(mesh.mesh_dim_names) != MESH_AXES:
+        raise ValueError(f"mesh axes {tuple(mesh.mesh_dim_names)} are not {MESH_AXES}")
 
 
 def param_axes(mesh: Any) -> Tuple[str, ...]:
-    """The mesh axes a parameter's placements name: (dp, fsdp, tp), and pp
-    between dp and fsdp where it has more than one stage. The rule table
-    places no parameter on sp (replicated there) and ep is 1 on every mesh
-    the port runs (``check_supported``). DTensor's sharding propagation
-    grows steeply with the mesh's rank (AdamW's first step on the 6-D mesh
-    took minutes on the CPU), so an axis of one rank is left out."""
-    return ("dp", "pp", "fsdp", "tp") if axes_size("pp", mesh) > 1 else ("dp", "fsdp", "tp")
+    """The mesh axes a parameter's placements name: (dp, fsdp, tp), with pp
+    (pipeline stages) and ep (experts) in their mesh order where they have
+    more than one rank. The rule table places no parameter on sp
+    (replicated there). DTensor's sharding propagation grows steeply with
+    the mesh's rank (AdamW's first step on the 6-D mesh took minutes on the
+    CPU), so an axis of one rank is left out."""
+    return tuple(a for a in MESH_AXES
+                 if a in ("dp", "fsdp", "tp") or (a in ("pp", "ep") and axes_size(a, mesh) > 1))
 
 
 def param_mesh(mesh: Any) -> Any:
@@ -353,12 +362,55 @@ def gather_tp(x: torch.Tensor, dim: int, mesh: Any) -> torch.Tensor:
     return x if axes_size("tp", mesh) == 1 else _Gather.apply(x, dim, x.dtype, mesh, "tp")
 
 
-def copy_to_tp(x: torch.Tensor, mesh: Any) -> torch.Tensor:
-    return x if axes_size("tp", mesh) == 1 else _ReduceBackward.apply(x, mesh, "tp")
+def copy_to(x: torch.Tensor, mesh: Any, axis: str = "tp") -> torch.Tensor:
+    """Megatron's f over ``axis``: ``x`` enters a region whose ranks each
+    compute a part (tp: its columns; ep: its experts); backward sums the
+    parts' gradients over ``axis``."""
+    return x if axes_size(axis, mesh) == 1 else _ReduceBackward.apply(x, mesh, axis)
 
 
-def reduce_from_tp(x: torch.Tensor, mesh: Any) -> torch.Tensor:
-    return x if axes_size("tp", mesh) == 1 else _ReduceForward.apply(x, mesh, "tp")
+def reduce_from(x: torch.Tensor, mesh: Any, axis: str = "tp") -> torch.Tensor:
+    """Megatron's g over ``axis``: the sum of the ranks' parts, with the
+    identity backward."""
+    return x if axes_size(axis, mesh) == 1 else _ReduceForward.apply(x, mesh, axis)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """All-reduce (sum) over ``axis`` whose every rank uses the sum: its
+    backward sums the ranks' gradients the same way."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mesh, ctx.axis), None, None
+
+
+# The axes over which a gang's ranks hold different tokens: rows over the
+# batch's, columns over sp (ep and tp peers hold the same ones).
+TOKEN_AXES = BATCH_AXES + ("sp",)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Any, axes: Sequence[str] = TOKEN_AXES) -> torch.Tensor:
+    """The sum of ``x`` over ``axes``, on every rank; differentiable, each
+    rank's gradient being the sum of every rank's gradient of the sum."""
+    for axis in axes:
+        if axes_size(axis, mesh) > 1:
+            x = _AllReduceSum.apply(x, mesh, axis)
+    return x
+
+
+def gather_tokens(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """The global [B, S, ...] tensor from every rank's [b, s, ...] block:
+    rows over (dp, fsdp) row-major, columns over sp (``shard_batch``'s
+    inverse). Not differentiable."""
+    for axis, dim in (("sp", 1), ("fsdp", 0), ("dp", 0)):
+        if axes_size(axis, mesh) > 1:
+            x = _all_gather(x, dim, mesh, axis)
+    return x
 
 
 def shift(x: torch.Tensor, mesh: Any, axis: str = "sp", offset: int = 1) -> torch.Tensor:
@@ -391,7 +443,11 @@ def reduce_gradients(leaves: Sequence[DTensor], mesh: Any) -> None:
     have its gradient; the others hold zeros, so each use counts once),
     then divide by the batch's shard count, so that each is the gradient of
     the global mean loss. With pp > 1 a leaf that got no gradient on this
-    stage gets zeros first: every rank makes the same collectives."""
+    stage gets zeros first: every rank makes the same collectives. Nothing
+    is summed over ep or tp: a leaf sharded there (an expert, a tp column)
+    has only its own block's gradient, and a leaf replicated there already
+    has its whole gradient on every rank (``copy_to`` summed the parts of
+    the regions where the ranks differ)."""
     n = axes_size(BATCH_AXES, mesh)
     sp, pp = axes_size("sp", mesh), axes_size("pp", mesh)
     for p in leaves:
@@ -457,7 +513,7 @@ def vocab_parallel_embed(
     ok = (local >= 0) & (local < vshard)
     out = table[local.clamp(0, vshard - 1)]
     out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
-    return reduce_from_tp(out, mesh)
+    return reduce_from(out, mesh)
 
 
 def vocab_parallel_token_nll(logits: torch.Tensor, targets: torch.Tensor, mesh: Any) -> torch.Tensor:
@@ -467,11 +523,11 @@ def vocab_parallel_token_nll(logits: torch.Tensor, targets: torch.Tensor, mesh: 
     same on every tp rank."""
     vshard = logits.shape[-1]
     m = _all_reduce(logits.detach().amax(dim=-1), mesh, "tp", "max")
-    s = reduce_from_tp(torch.exp(logits - m[:, None]).sum(dim=-1), mesh)
+    s = reduce_from(torch.exp(logits - m[:, None]).sum(dim=-1), mesh)
     local = targets - mesh.get_local_rank("tp") * vshard
     ok = (local >= 0) & (local < vshard)
     picked = logits.gather(1, local.clamp(0, vshard - 1)[:, None])[:, 0]
-    tl = reduce_from_tp(torch.where(ok, picked, torch.zeros((), device=picked.device)), mesh)
+    tl = reduce_from(torch.where(ok, picked, torch.zeros((), device=picked.device)), mesh)
     return m + torch.log(s) - tl
 
 

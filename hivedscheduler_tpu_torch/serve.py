@@ -1,6 +1,6 @@
-"""Serve a Llama-style model: weights from a training checkpoint or random
-from a seed, synthetic prompts, flash-kernel prefill and KV-cache decode;
-on one device, or sharded over the processes of a gang.
+"""Serve a Llama-style or Mixtral model: weights from a training checkpoint
+or random from a seed, synthetic prompts, flash-kernel prefill and KV-cache
+decode; on one device, or sharded over the processes of a gang.
 
 Counterpart of ``example/workloads/serve_llama.py``::
 
@@ -19,10 +19,14 @@ sample), its decode rate, and how many times the flash kernel launched.
 
 A gang of more than one process lays itself out as ``serve_llama.py``
 does: tp 4 when the world divides by 4, else 2 when by 2, the rest fsdp;
-the batch snaps to a multiple of dp x fsdp. The weights are placed by the
-rule table, each rank serves its rows of every request (the ranks of a tp
-group the same rows, sampling alike) and prints its own first row. int8
-linears on a mesh are not ported.
+for ``mixtral_*`` ep = the expert count when it divides the world, else 2
+when that does, the rest fsdp. The batch snaps to a multiple of dp x fsdp.
+The weights are placed by the rule table, each rank serves its rows of
+every request (the ranks of a tp or ep group the same rows, sampling
+alike) and prints its own first row. The Mixtral models serve through the
+same cache machinery, their routed FFN in ``generate``'s ``ffn`` hook
+(``mixtral.decode_ffn``). int8 linears on a mesh are not ported; ``--int8``
+refuses the Mixtral models, whose expert weights it does not quantize.
 """
 
 from __future__ import annotations
@@ -30,14 +34,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.distributed.tensor import empty as dtensor_empty
 
 from . import Device, resolve_device
-from .models import checkpoint, generate, quantize, transformer
+from .models import checkpoint, generate, mixtral, model_of, quantize, transformer
 from .ops import attention
 from .parallel import sharding
 from .parallel.mesh import infer_mesh_config, make_mesh, world_size
@@ -45,7 +49,10 @@ from .workloads.common import (  # noqa: F401 (synthetic_tokens re-exported)
     bootstrap_distributed, lift_env_block, synthetic_tokens,
 )
 
-MODELS = {"tiny": transformer.tiny, "llama3_8b": transformer.llama3_8b}
+MODELS = {"tiny": transformer.tiny, "llama3_8b": transformer.llama3_8b,
+          "mixtral_tiny": mixtral.tiny, "mixtral_8x7b": mixtral.mixtral_8x7b}
+INT8_MOE = ("--int8 quantizes the dense family's linears; the MoE expert weights are out of "
+            "scope (models/quantize.py)")
 
 
 def _empty(tree: Any, dtype: torch.dtype, device: torch.device, placements: Any = None,
@@ -69,14 +76,17 @@ def build(
     layers: Optional[int] = None,
     ckpt: Optional[str] = None,
     mesh: Any = None,
-) -> Tuple[transformer.TransformerConfig, transformer.Params]:
+) -> Tuple[Any, transformer.Params]:
     """The model's config (depth cut to ``layers``) and its parameters in
     the compute dtype: restored from the latest step under ``ckpt``, else
     drawn from ``seed``; int8-quantized linears when ``int8``. On an active
     ``mesh``, DTensors placed by the rule table (each rank reads or keeps
     its own shards)."""
+    if int8 and model.startswith("mixtral"):
+        raise ValueError(INT8_MOE)
     device = resolve_device(device)
     config = MODELS[model]()
+    module = model_of(config)
     config = dataclasses.replace(config, n_layers=layers or config.n_layers)
     active = sharding.is_active(mesh)
     if active and sharding.axes_size("pp", mesh) > 1:
@@ -86,11 +96,11 @@ def build(
         raise NotImplementedError("int8 linears on a mesh are not ported; serve them on one process")
     if ckpt:
         # Shapes from an init on the meta device: nothing is drawn.
-        shapes = transformer.init(config, torch.Generator(), "meta")
+        shapes = module.init(config, torch.Generator(), "meta")
         placements = None
         if active:
             placements = sharding.tree_shardings(sharding.param_mesh(mesh),
-                                                 transformer.logical_axes(config))
+                                                 module.logical_axes(config))
         like = _empty(shapes, config.dtype, device, placements,
                       sharding.param_mesh(mesh) if active else None)
         params, step = checkpoint.TrainCheckpointer(ckpt).restore_params(like)
@@ -98,9 +108,9 @@ def build(
     else:
         gen = torch.Generator(device=device).manual_seed(seed)
         if active:
-            params = transformer.init_distributed(config, mesh, gen, device)
+            params = module.init_distributed(config, mesh, gen, device)
         else:
-            params = transformer.init(config, gen, device)
+            params = module.init(config, gen, device)
     if int8:
         params = quantize.quantize_params(params)
     return config, params
@@ -120,17 +130,20 @@ def run_request(
     top_p: float = 1.0,
     generator: Optional[torch.Generator] = None,
     mesh: Any = None,
+    ffn: Optional[Callable] = None,
 ) -> Dict[str, object]:
     """Generate ``new_tokens`` after ``prompt`` and time it: TTFT is the
     prefill plus the first sample, the decode rate counts the tokens after
     the first over the time after it. Host clock around device syncs. On an
-    active ``mesh``, ``prompt`` is this rank's rows."""
+    active ``mesh``, ``prompt`` is this rank's rows. ``ffn``: the MoE hook
+    (:func:`decode_hook`)."""
     device = prompt.device
     launches0 = attention.flash_attention.launches
     _sync(device)
     t0 = time.perf_counter()
     stream = generate.generate_stream(
-        params, prompt, config, new_tokens, temperature, generator, top_p=top_p, mesh=mesh
+        params, prompt, config, new_tokens, temperature, generator, top_p=top_p, mesh=mesh,
+        ffn=ffn,
     )
     tokens = [next(stream)]
     _sync(device)
@@ -148,6 +161,21 @@ def run_request(
     }
 
 
+def decode_hook(config: Any) -> Optional[Callable]:
+    """``generate``'s ``ffn`` hook for a config: the routed MoE for
+    Mixtral, None (the dense SwiGLU) otherwise."""
+    return mixtral.decode_ffn(config) if isinstance(config, mixtral.MixtralConfig) else None
+
+
+def mesh_layout(model: str, n: int) -> Any:
+    """A gang's layout (``serve_llama.py``'s): ep over the experts for
+    Mixtral, tp for the dense family, the rest fsdp."""
+    if model.startswith("mixtral"):
+        e = MODELS[model]().n_experts
+        return infer_mesh_config(n, ep=e if n % e == 0 else (2 if n % 2 == 0 else 1))
+    return infer_mesh_config(n, tp=4 if n % 4 == 0 else (2 if n % 2 == 0 else 1))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     """Serve ``--requests`` requests; returns each request's result
     (``run_request``'s dict)."""
@@ -163,12 +191,16 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     parser.add_argument("--temperature", type=float, default=0.8)
     parser.add_argument("--top-p", type=float, default=0.95)
     parser.add_argument("--int8", action="store_true",
-                        help="serve int8-quantized linears (models/quantize.py)")
+                        help="serve int8-quantized linears (models/quantize.py; the dense "
+                             "family only)")
     parser.add_argument("--requests", type=int, default=4)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None,
                         help="default cuda; 'cpu' runs the plain versions")
     args = parser.parse_args(argv)
+    if args.int8 and args.model.startswith("mixtral"):
+        # Before any mesh, build or restore (a Mixtral restore is minutes of reading).
+        raise SystemExit(INT8_MOE)
 
     lift_env_block()  # the card grant, before anything initialises CUDA
     device = resolve_device(args.device)
@@ -176,7 +208,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     n = world_size()
     mesh, batch, batch_rank = None, args.batch, 0
     if n > 1:
-        layout = infer_mesh_config(n, tp=4 if n % 4 == 0 else (2 if n % 2 == 0 else 1))
+        layout = mesh_layout(args.model, n)
         mesh = make_mesh(layout, device)
         # serve_llama.py's snap: at least one row a (dp, fsdp) shard.
         per = layout.dp * layout.fsdp
@@ -185,6 +217,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
             print(f"batch {args.batch} -> {batch} (multiple of dp*fsdp={per})", flush=True)
         batch_rank = sharding.batch_rank(mesh)
     config, params = build(args.model, args.seed, device, args.int8, args.layers, args.ckpt, mesh)
+    ffn = decode_hook(config)
     rng = np.random.default_rng(args.seed + 1)
     # One stream a batch shard: the ranks of a tp group sample alike.
     gen = torch.Generator(device=device).manual_seed(args.seed + 2 + batch_rank)
@@ -196,7 +229,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
             prompt = sharding.shard_batch(prompt, mesh)
         res = run_request(
             params, prompt.to(device), config, args.new_tokens, args.temperature,
-            args.top_p, gen, mesh,
+            args.top_p, gen, mesh, ffn,
         )
         results.append(res)
         rate = res["decode_tok_s"]

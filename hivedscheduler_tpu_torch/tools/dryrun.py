@@ -22,11 +22,15 @@ step on 4 rows; a row that diverges raises. Rows:
 - ``pp``: pp 2, fsdp n / 4, tp 2 (n divisible by 4): the GPipe schedule,
   each stage one of tiny's two layers;
 - ``pp-x-sp``: pp 2, sp 2, fsdp n / 4 (n divisible by 4): the pipeline
-  with the sequence sharded inside each stage.
+  with the sequence sharded inside each stage;
+- ``ep-moe``: fsdp n / 2 x ep 2 (n even): one step of the Mixtral ``tiny``
+  model (f32, AdamW with ``optax.adamw(1e-3)``'s settings) on all-zero
+  tokens of 64, held to the one-process Mixtral step on the same rows, not
+  to the dense one. Its head_dim of 16 and length of 64 are below the
+  kernels', so it launches none on the card.
 
 Each rank reports its kernel launches per row; :func:`expected_launches`
-is what each kernel must show on the card. The JAX dryrun's expert row
-(``ep-moe``) is ROADMAP queue 1 item 12.
+is what each kernel must show on the card.
 """
 
 from __future__ import annotations
@@ -42,8 +46,10 @@ from typing import Dict, List, Optional, Sequence
 
 TOL = 5e-3
 SEQ = 256
-ROWS = ("fsdp_sp_tp", "ulysses-sp", "fsdp_tp", "fsdp", "dp", "pp", "pp-x-sp")
-LATER_ROWS = {"ep-moe": 12}
+MOE_SEQ = 64
+ROWS = ("fsdp_sp_tp", "ulysses-sp", "fsdp_tp", "fsdp", "dp", "pp", "pp-x-sp", "ep-moe")
+# Rows of the JAX dryrun still to port -> their ROADMAP queue 1 item.
+LATER_ROWS: Dict[str, int] = {}
 # The rows that force a sequence-parallel backend.
 SP_MODE = {"ulysses-sp": "ulysses"}
 
@@ -72,6 +78,7 @@ def layouts(n: int, rows: Sequence[str] = ROWS) -> Dict[str, Dict[str, int]]:
         table["ulysses-sp"] = main
     if n % 2 == 0:
         table["dp"] = dict(dp=2, fsdp=n // 2)
+        table["ep-moe"] = dict(fsdp=n // 2, ep=2)
     if n % 4 == 0:
         table["pp"] = dict(pp=2, fsdp=n // 4, tp=2)
         table["pp-x-sp"] = dict(pp=2, sp=2, fsdp=n // 4)
@@ -84,13 +91,16 @@ def _rows(sizes: Dict[str, int]) -> int:
     return -(-4 // dpf) * dpf
 
 
-def expected_launches(sizes: Dict[str, int]) -> int:
+def expected_launches(sizes: Dict[str, int], row: str = "") -> int:
     """Each kernel's launches on every rank in one step of a row on the
-    card: once a layer (tiny runs without remat), and on a pipeline stage
-    once a layer of the stage a microbatch."""
+    card: once a layer (tiny runs without remat), on a pipeline stage once
+    a layer of the stage a microbatch, and none in ``ep-moe`` (Mixtral
+    tiny's heads of 16 are below the kernels' head dims)."""
     from ..models import transformer
     from ..parallel import pipeline
 
+    if row == "ep-moe":
+        return 0
     layers, pp = transformer.tiny().n_layers, sizes.get("pp", 1)
     if pp == 1:
         return layers
@@ -98,10 +108,10 @@ def expected_launches(sizes: Dict[str, int]) -> int:
     return layers // pp * pipeline.microbatches(local_rows, pp)
 
 
-def _tokens(rows: int):
+def _tokens(rows: int, seq: int = SEQ):
     import torch
 
-    return torch.zeros((rows, SEQ), dtype=torch.long)
+    return torch.zeros((rows, seq), dtype=torch.long)
 
 
 def _params(device: str, mesh=None, sp_mode: str = "auto"):
@@ -120,10 +130,33 @@ def _params(device: str, mesh=None, sp_mode: str = "auto"):
     return config, params, optimizer
 
 
-def reference_loss(device: str = "cpu") -> float:
-    """The one-process step's loss on 4 zero rows."""
+def _moe_step(device: str, rows: int, mesh=None) -> float:
+    """One ``ep-moe`` step (Mixtral tiny, seed 0, zero tokens of
+    ``MOE_SEQ``), on ``mesh`` or one process; returns its loss."""
+    import torch
+
+    from ..models import mixtral, train
+    from ..parallel import sharding
+    from ..workloads import train_bert, train_mixtral
+
+    config = mixtral.tiny()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = train.init_sharded(config, mesh, gen, device, model=mixtral)[0]
+    optimizer = train_bert.make_optimizer(params, 1e-3)
+    tokens = _tokens(rows, MOE_SEQ)
+    if sharding.is_active(mesh):
+        tokens = sharding.shard_batch(tokens, mesh)
+    return float(train_mixtral.train_step(params, optimizer, tokens.to(device), config, mesh))
+
+
+def reference_loss(device: str = "cpu", row: str = "", rows: int = 4) -> float:
+    """The one-process step's loss on zero rows: the dense model's on 4,
+    or for ``ep-moe`` Mixtral's on ``rows`` (routing capacity counts the
+    batch's tokens, so the row is held at its own batch)."""
     from ..models import train
 
+    if row == "ep-moe":
+        return _moe_step(device, rows)
     config, params, optimizer = _params(device)
     return float(train.train_step(params, optimizer, _tokens(4), config, device))
 
@@ -147,11 +180,14 @@ def _worker(rank: int, world: int, port: int, device: str, rows: Sequence[str]) 
     try:
         for row, sizes in layouts(world, rows).items():
             mesh = pmesh.make_mesh(pmesh.MeshConfig(**sizes), device)
-            config, params, optimizer = _params(device, mesh, SP_MODE.get(row, "auto"))
-            tokens = sharding.shard_batch(_tokens(_rows(sizes)), mesh)
-            step = train.make_train_step(config, mesh, optimizer)
             before = kernel_launches()
-            losses[row] = float(step(params, tokens))
+            if row == "ep-moe":
+                losses[row] = _moe_step(device, _rows(sizes), mesh)
+            else:
+                config, params, optimizer = _params(device, mesh, SP_MODE.get(row, "auto"))
+                tokens = sharding.shard_batch(_tokens(_rows(sizes)), mesh)
+                step = train.make_train_step(config, mesh, optimizer)
+                losses[row] = float(step(params, tokens))
             launches[row] = {k: v - before[k] for k, v in kernel_launches().items()}
     finally:
         dist.destroy_process_group()
@@ -167,8 +203,9 @@ def _free_port() -> int:
 def dryrun(n: int, rows: Sequence[str] = ROWS, device: str = "cpu",
            timeout: float = 600) -> Dict[str, object]:
     """Run the rows on an n-process gang and hold each rank's loss to the
-    one-process step's; returns {"reference": loss, "rows": {row: loss},
-    "launches": {row: each rank's kernel launches}} (CUDA launches only),
+    one-process step's; returns {"reference": the dense one-process loss,
+    "references": {row: the loss it is held to}, "rows": {row: loss},
+    "launches": {row: each rank's kernel launches} (CUDA launches only),
     "expected": {row: each kernel's launches per rank on the card}}.
     Every process it starts is ended before it returns."""
     wanted = layouts(n, rows)
@@ -194,25 +231,27 @@ def dryrun(n: int, rows: Sequence[str] = ROWS, device: str = "cpu",
                 p.kill()
                 p.communicate()
     ref = reference_loss(device)
-    bad = [f"{row} rank {o['rank']}: loss={o['losses'][row]:.6f}"
-           for o in outs for row in wanted if abs(o["losses"][row] - ref) > TOL]
+    refs = {row: reference_loss(device, row, _rows(sizes)) if row == "ep-moe" else ref
+            for row, sizes in wanted.items()}
+    bad = [f"{row} rank {o['rank']}: loss={o['losses'][row]:.6f} vs {refs[row]:.6f}"
+           for o in outs for row in wanted if abs(o["losses"][row] - refs[row]) > TOL]
     if bad:
         raise RuntimeError(f"dryrun: sharded loss diverged from the one-process step "
-                           f"{ref:.6f} (tol {TOL}): " + "; ".join(bad))
+                           f"(tol {TOL}): " + "; ".join(bad))
     losses = {row: outs[0]["losses"][row] for row in wanted}
     print(f"dryrun: {n} processes on {device}, one-process loss={ref:.4f}, all rows within "
           f"{TOL}: " + ", ".join(f"{row} {wanted[row]} loss={v:.4f}" for row, v in losses.items()),
           flush=True)
-    return {"reference": ref, "rows": losses,
+    return {"reference": ref, "references": refs, "rows": losses,
             "launches": {row: [o["launches"][row] for o in outs] for row in wanted},
-            "expected": {row: expected_launches(sizes) for row, sizes in wanted.items()}}
+            "expected": {row: expected_launches(sizes, row) for row, sizes in wanted.items()}}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("n", type=int, help="processes in the gang")
     parser.add_argument("--rows", default=",".join(ROWS),
-                        help=f"comma list of {ROWS}; later items' rows raise")
+                        help=f"comma list of {ROWS}")
     parser.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
     parser.add_argument("--worker", nargs=2, type=int, metavar=("RANK", "PORT"),
                         help=argparse.SUPPRESS)

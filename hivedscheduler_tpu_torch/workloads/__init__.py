@@ -2,5 +2,6 @@
 ``example/workloads/common.py``): the boot from the scheduler's env block
 and synthetic tokens; the pod's launcher (``launch.py``, one process per
 granted card) and the twins of the JAX package's workloads: long context
-(``train_longctx.py``), pipeline stages (``train_pp.py``) and BERT-large
-(``train_bert.py``)."""
+(``train_longctx.py``), pipeline stages (``train_pp.py``), BERT-large
+(``train_bert.py``) and Mixtral 8x7B over expert parallelism
+(``train_mixtral.py``)."""

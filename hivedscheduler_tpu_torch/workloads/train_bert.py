@@ -39,13 +39,15 @@ ROWS_PER_SHARD = 8
 MASK_ID, MASK_RATE, IGNORE = 103, 0.15, -100
 
 
-def make_optimizer(params: bert.Params) -> torch.optim.AdamW:
-    """AdamW over every leaf with ``optax.adamw(1e-4)``'s defaults. Marks
-    every leaf as requiring grad."""
+def make_optimizer(params: bert.Params, learning_rate: float = 1e-4) -> torch.optim.AdamW:
+    """AdamW over every leaf with ``optax.adamw(learning_rate)``'s defaults
+    (betas 0.9 / 0.999, eps 1e-8, weight decay 1e-4). Marks every leaf as
+    requiring grad."""
     leaves = transformer.leaves(params)
     for t in leaves:
         t.requires_grad_(True)
-    return torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    return torch.optim.AdamW(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
 
 
 def masked_batch(rng: np.random.Generator, batch: int, seq: int,

@@ -45,7 +45,10 @@ def launched(mode, argv) -> None:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    print(json.dumps(out), flush=True)
+    # One write: a pod's children share the launcher's stdout pipe, and a
+    # pipe write of < 4096 bytes is atomic, so two lines cannot interleave.
+    sys.stdout.write(json.dumps(out) + "\n")
+    sys.stdout.flush()
 
 
 def main() -> None:

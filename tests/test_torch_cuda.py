@@ -235,3 +235,43 @@ def _check_rank_shape(cuda_device, h, hkv, s, seed, b=1, d=128, causal=True):
     for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         scale = want.float().abs().max().item()
         assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_at_mixtrals_training_batch(cuda_device):
+    # The Mixtral twin's 4 rows x 4096 on one card (or one ep group):
+    # Llama-3-8B's heads (32/8 of 128) at a new batch.
+    _check_rank_shape(cuda_device, 32, 8, 4096, 9, b=4)
+
+
+@pytest.mark.cuda
+def test_cuda_small_mixtral_matches_cpu(cuda_device):
+    # chip_smoke.py phase 11 (a): a small f32 Mixtral that reaches the
+    # kernels (S256, head_dim 32), two twin steps under full remat on the
+    # card and the CPU, then greedy tokens through the ffn hook.
+    from hivedscheduler_tpu_torch.models import convert, generate, mixtral, transformer
+    from hivedscheduler_tpu_torch.workloads import train_mixtral
+
+    config = mixtral.MixtralConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+                                   n_kv_heads=2, d_ff=256, n_experts=4, max_seq_len=256,
+                                   dtype=torch.float32)
+    cpu = mixtral.init(config, torch.Generator().manual_seed(0), "cpu")
+    card = convert.params_from_jax(convert.params_to_numpy(cpu), device=cuda_device)
+    toks = torch.randint(0, config.vocab_size, (2, 256), generator=torch.Generator().manual_seed(1))
+    losses, grads, new = [], [], []
+    for params, device in ((cpu, "cpu"), (card, cuda_device)):
+        opt = train_mixtral.make_optimizer(params)
+        before = TA.kernel_launches()
+        losses.append([float(train_mixtral.train_step(params, opt, toks.to(device), config))])
+        grads.append([t.grad.detach().cpu().clone() for t in transformer.leaves(params)])
+        losses[-1].append(float(train_mixtral.train_step(params, opt, toks.to(device), config)))
+        after = TA.kernel_launches()
+        new.append(generate.generate(params, toks.to(device), config, 8,
+                                     ffn=mixtral.decode_ffn(config))[:, 256:].cpu())
+    # Two steps of full remat: the forward twice a layer, each backward once.
+    assert {k: after[k] - before[k] for k in after} == {
+        "flash_fwd": 8, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4}
+    torch.testing.assert_close(torch.tensor(losses[1]), torch.tensor(losses[0]), rtol=0, atol=1e-4)
+    for a, b in zip(*grads):
+        assert _rel(b, a) < 1e-4
+    assert torch.equal(new[0], new[1])

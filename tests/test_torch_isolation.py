@@ -36,7 +36,8 @@ def test_import_pulls_in_no_jax():
     assert "hivedscheduler_tpu_torch.models.train" in mods
     assert "hivedscheduler_tpu_torch.models.perf" in mods
     for name in ("parallel.mesh", "parallel.sharding", "utils.data", "workloads.common",
-                 "models.checkpoint", "tools.mfu_sweep", "tools.dryrun"):
+                 "models.checkpoint", "tools.mfu_sweep", "tools.dryrun", "models.mixtral",
+                 "workloads.train_mixtral"):
         assert f"hivedscheduler_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -98,9 +99,10 @@ def test_job_entry_points_default_to_cuda(monkeypatch, tmp_path):
     from hivedscheduler_tpu_torch.models import perf
     from hivedscheduler_tpu_torch.parallel import mesh
     from hivedscheduler_tpu_torch.tools import mfu_sweep
+    from hivedscheduler_tpu_torch.workloads import train_mixtral
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for main in (serve.main, perf.main, mfu_sweep.main):
+    for main in (serve.main, perf.main, mfu_sweep.main, train_mixtral.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main([])
     with pytest.raises(RuntimeError, match="CUDA"):

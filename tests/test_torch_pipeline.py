@@ -347,8 +347,11 @@ def test_pipeline_axis_is_supported_and_expert_parallelism_still_raises():
     sharding.check_supported(_stand_in(pp=2, sp=2, tp=2))  # no longer raises
     assert sharding.param_axes(_stand_in(pp=2, tp=2)) == ("dp", "pp", "fsdp", "tp")
     assert sharding.param_axes(_stand_in(fsdp=2, tp=2)) == ("dp", "fsdp", "tp")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        sharding.check_supported(_stand_in(ep=2))
+    # Expert parallelism is ported too (ROADMAP queue 1 item 12): ep joins
+    # the parameter sub-mesh in mesh order where it has more than one rank.
+    sharding.check_supported(_stand_in(ep=2))
+    assert sharding.param_axes(_stand_in(fsdp=2, ep=2)) == ("dp", "fsdp", "ep", "tp")
+    assert sharding.param_axes(_stand_in(pp=2, ep=2, tp=2)) == ("dp", "pp", "fsdp", "ep", "tp")
 
 
 def test_serving_refuses_a_pipelined_mesh(monkeypatch):

@@ -233,8 +233,12 @@ def test_shard_batch_takes_this_ranks_rows():
 
 @pytest.mark.parametrize("axis,item", [("ep", 12)])
 def test_later_axes_raise(axis, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        sharding.check_supported(_mesh(**{axis: 2}))
+    # ROADMAP queue 1 item 12 ported expert parallelism: ep is accepted and
+    # placed; only a mesh without the six axes is refused.
+    sharding.check_supported(_mesh(**{axis: 2}))
+    assert axis in sharding.param_axes(_mesh(**{axis: 2}))
+    with pytest.raises(ValueError, match="not"):
+        sharding.check_supported(types.SimpleNamespace(mesh_dim_names=("fsdp", axis), shape=(2, 2)))
 
 
 def test_sequence_parallelism_is_supported():
@@ -248,12 +252,19 @@ def test_inactive_meshes_keep_the_unsharded_path():
 
 def test_dryrun_four_processes():
     result = dryrun.dryrun(4, timeout=300)
-    assert sorted(result["rows"]) == ["dp", "fsdp", "fsdp_sp_tp", "fsdp_tp", "pp", "pp-x-sp",
-                                      "ulysses-sp"]
-    assert all(abs(v - result["reference"]) <= dryrun.TOL for v in result["rows"].values())
+    assert sorted(result["rows"]) == ["dp", "ep-moe", "fsdp", "fsdp_sp_tp", "fsdp_tp", "pp",
+                                      "pp-x-sp", "ulysses-sp"]
+    # Each row against its own one-process step (ep-moe: Mixtral's).
+    assert all(abs(v - result["references"][row]) <= dryrun.TOL
+               for row, v in result["rows"].items())
+    assert all(result["references"][row] == result["reference"]
+               for row in result["rows"] if row != "ep-moe")
 
 
 @pytest.mark.parametrize("row,item", [("ep-moe", 12)])
 def test_dryrun_names_the_item_of_a_later_row(row, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        dryrun.layouts(4, [row])
+    # Item 12 ported the last later row: none is left, and ep-moe lays out
+    # as the JAX dryrun's expert row.
+    assert dryrun.LATER_ROWS == {} and row in dryrun.ROWS
+    assert dryrun.layouts(4, [row]) == {row: dict(fsdp=2, ep=2)}
+    assert dryrun.layouts(3, [row]) == {}  # n odd: the JAX dryrun skips it
