@@ -78,11 +78,17 @@ neither the kernels line nor the last line, since no main path ran):
              whose greedy tokens must equal ``serve.run_request``'s on the
              trainer's parameters cast to bf16; every prefill layer must
              launch the flash kernel.
-7. perf    - the perf harness (``models/perf.main``) with its decode and
-             long-context stages, its artifact in a temporary file: no error
-             or rejected row, every MFU in (0, 1], finite losses, the
-             artifact written, and the train step and the attention
-             benchmark launching all three kernels.
+7. perf    - the perf harness (``models/perf.main``) with its decode,
+             long-context and zoo stages, its artifact in a temporary file:
+             no error or rejected row and no zoo error dict, every MFU in
+             (0, 1], finite losses, the artifact written, and the train
+             step and the attention benchmark launching all three kernels.
+             The zoo (BERT-large 8 x 512, ResNet-50 64 x 224^2, the bench
+             model's decode at batch 8 after 128 tokens) prints its rows;
+             its BERT steps launch the forward twice a layer and each
+             backward once, a step; its ResNet and decode launch none (the
+             128-token prefill is shorter than the flash dispatch's 256, in
+             both packages, so it runs the plain attention).
 8. sharded - a one-rank NCCL group (TCP store on 127.0.0.1) and the 6-axis
              mesh over it; NCCL's all-gather, reduce-scatter and all-reduce
              once each (the model skips collectives over one rank, so the
@@ -111,8 +117,14 @@ neither the kernels line nor the last line, since no main path ran):
              (ep 4 x fsdp 1: two experts a rank, every rank holding all 4
              rows; 2 layers, 4 x 4096, 3 steps), each rank launching the
              kernels as phase 11 (c) does (the dryrun's ``ep-moe`` row
-             launches none: Mixtral tiny's heads of 16). With one card, the
-             summary records ``"nccl_ranks": 1``.
+             launches none: Mixtral tiny's heads of 16); the ResNet twin
+             runs at dp 4 (BASELINE config 2: 32 images of 224^2 a card, 3
+             steps) against one card at batch 128 on the same seeds, its
+             first loss (before any update) within GANG_TOL, the later
+             ones logged with their gaps (in bf16 at random init a step of
+             SGD moves them by more than rounding), its batch norm's
+             running stats equal on the four ranks (their digest). With
+             one card, the summary records ``"nccl_ranks": 1``.
 9. longctx - the long-context twin (``workloads/train_longctx.py``) at
              Llama-3-8B's full width, depth cut to 2 layers, 3 steps of
              one 32768-token row from the twin's seeds (on one card sp is 1, so the
@@ -155,11 +167,28 @@ neither the kernels line nor the last line, since no main path ran):
              losses finite, the first within LOSS_BAND of ln(32000) + 0.5
              + the aux term, the last below the first; step ms, tokens/s
              and peak memory printed.
+12. zoo    - (a) a small f64 ResNet (width 16, 10 classes, batch 4 x 32^2)
+             takes 2 SGD steps of the ResNet twin's step on the card and on
+             the CPU from the same weights: the losses, the step-1
+             gradients, the parameters and the batch norm's running stats
+             within TRAIN_TOL, no kernel launched. f64, not f32: at this
+             shape the training forward's f32 rounding alone moves the
+             gradients by percents (``tests/test_torch_resnet.py``). (b) the
+             ResNet-50 twin (``workloads/train_resnet.py``) through the pod's
+             launcher on phase 6's one-card bind info, at its published
+             shape (32 x 224^2, 1000 classes, bf16), 2 warm-up and 4 timed
+             steps (the reference's 20 cut to 6 for time): losses finite, the
+             first within LOSS_BAND of ln(1000), the running stats moved
+             from (0, 1); step ms, images/s and peak memory printed. Not
+             gated on bitwise repeats: cuDNN's backward may use atomics. (c)
+             the MNIST twin (``workloads/train_mnist.py``) on the card: 100
+             steps, the last loss below the first, ``done`` printed.
 
 Each phase logs its seconds. The lines before the last are nvidia-smi's
 name and power limit, then one JSON object with each kernel's numbers (its
 ``launches_by_path``: serve, train, workloads, perf, sharded, longctx,
-bert, mixtral); the last line is ``{"ok": true, "device": {...}}``. Each
+bert, mixtral, zoo: the perf harness's zoo stage with phase 12); the last
+line is ``{"ok": true, "device": {...}}``. Each
 kernel's ``tp_shapes`` holds its numbers at phase 3's per-rank tp shapes,
 ``sp_shapes`` at the Ulysses per-rank shapes, ``bert_shapes`` at BERT's,
 ``pp_shapes`` at the pipeline stage's and ``mixtral_shapes`` at Mixtral's
@@ -222,8 +251,11 @@ TINY_TRAIN = {"batch": 2, "seq": 256, "steps": 2}
 # The parameters after both steps are held only on the mean: Adam's update
 # is about lr * sign(g) for each element, so a gradient near 0 that the two
 # sides round to opposite signs moves its parameter 2 lr apart, however
-# close the gradients are. The losses agree to 1e-4.
-TRAIN_TOL = {"loss": 1e-4, "grad_max_rel": 1e-4, "param_mean": 1e-6}
+# close the gradients are. The losses agree to 1e-4. Batch norm's running
+# stats (phase 12, f64) are held leaf by leaf to 1e-6 of max |CPU|: a step
+# of SGD at lr 0.1 on the small model throws its activations, and so its
+# variances, far from 1.
+TRAIN_TOL = {"loss": 1e-4, "grad_max_rel": 1e-4, "param_mean": 1e-6, "stats_max_rel": 1e-6}
 # First loss of random init: logits of unit variance give about
 # ln(vocab) + 0.5.
 LOSS_BAND = 1.5
@@ -295,6 +327,12 @@ MIXTRAL_SMALL = {"config": dict(vocab_size=512, d_model=128, n_layers=2, n_heads
 MIXTRAL_SERVE = {"model": "mixtral_8x7b", "layers": 16, "batch": 4, "prompt": 2048,
                  "new_tokens": 32, "requests": 2}
 MIXTRAL_TRAIN = {"layers": 2, "warmup": 2, "timed": 4}
+# Phase 12: (a) a small f64 ResNet, two twin steps on the card and the CPU;
+# (b) the ResNet-50 twin at its published shape; (c) the MNIST twin. The
+# four-card gang: the twin at dp 4 against one card at the global batch.
+RESNET_SMALL = {"config": dict(num_classes=10, width=16), "batch": 4, "size": 32, "steps": 2}
+RESNET = {"batch": 32, "size": 224, "warmup": 2, "timed": 4}
+RESNET_GANG = {"batch": 32, "steps": 3}
 
 
 def log(phase: str, **fields) -> None:
@@ -1130,21 +1168,22 @@ def workloads_job(seed: int, workdir: str) -> dict:
     return {k: train_launches[k] + serve_launches[k] for k in train_launches}
 
 
-def phase_perf(profile: bool) -> dict:
+def phase_perf(profile: bool) -> tuple:
     """The perf harness with its optional stages; fails on any error or
-    rejected row, an MFU outside (0, 1], a non-finite loss, a missing
-    artifact or a kernel that a stage did not launch. Returns each
-    kernel's launches over the harness's run."""
+    rejected row, a zoo error dict, an MFU outside (0, 1], a non-finite
+    loss, a missing artifact or a kernel that a stage did not launch as it
+    should. Returns each kernel's launches over the harness's run outside
+    the zoo stage and inside it."""
     import math
 
     import numpy as np
     import torch
 
-    from hivedscheduler_tpu_torch.models import perf, train, transformer
+    from hivedscheduler_tpu_torch.models import bert, perf, train, transformer
     from hivedscheduler_tpu_torch.ops import attention as A
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_perf_")
-    knobs = {"HIVED_PERF_DECODE": "1", "HIVED_PERF_LONGCTX": "1",
+    knobs = {"HIVED_PERF_DECODE": "1", "HIVED_PERF_LONGCTX": "1", "HIVED_PERF_ZOO": "1",
              "HIVED_PERF_ARTIFACT": os.path.join(workdir, "perf.json")}
     saved_env = dict(os.environ)
     try:
@@ -1154,10 +1193,23 @@ def phase_perf(profile: bool) -> dict:
         result = perf.main([])
         launches = A.kernel_launches()
         seconds = time.perf_counter() - t0
-        rows = [result] + result["long_context"] + result["decode_sweep"]
+        rows = [result] + result["long_context"] + result["decode_sweep"] + [result["zoo"]]
         bad = [r for r in rows if "error" in r or "mfu_rejected" in r]
         if bad:
             raise AssertionError(f"perf rows failed: {bad}")
+        zoo = result["zoo"]
+        zoo_launches = {k: sum(n[k] for n in zoo["launches"].values()) for k in launches}
+        # One warm-up and 4 timed calls a stage; BERT-large's full remat
+        # runs the forward twice a layer.
+        layers = bert.bert_large().n_layers
+        want = {"bert": {"flash_fwd": 5 * 2 * layers, "flash_bwd_dkdv": 5 * layers,
+                         "flash_bwd_dq": 5 * layers},
+                "resnet": dict.fromkeys(launches, 0), "decode": dict.fromkeys(launches, 0)}
+        if zoo["launches"] != want:
+            raise AssertionError(f"perf zoo launched {zoo['launches']}, not {want}")
+        for row, value in zoo.items():
+            if row != "launches" and not (math.isfinite(value) and value > 0):
+                raise AssertionError(f"perf zoo row {row} = {value}")
         for r in [result] + result["long_context"]:
             if not (r.get("mfu") is not None and 0 < r["mfu"] <= 1):
                 raise AssertionError(f"perf row without an MFU in (0, 1]: {r}")
@@ -1170,7 +1222,11 @@ def phase_perf(profile: bool) -> dict:
                 raise AssertionError(f"perf {stage}: a kernel did not launch: {result[stage]}")
         with open(knobs["HIVED_PERF_ARTIFACT"]) as f:
             artifact = json.load(f)
-        log("perf", seconds=seconds, launches=launches, artifact_keys=sorted(artifact))
+        if "zoo" not in artifact:
+            raise AssertionError("perf's artifact holds no zoo rows")
+        log("perf", step="zoo", **zoo)
+        log("perf", seconds=seconds, launches=launches, zoo_launches=zoo_launches,
+            artifact_keys=sorted(artifact))
         if profile:
             # The harness's training step again (its model, seeds and
             # shape), two warm-up steps, then one under the profiler.
@@ -1184,7 +1240,7 @@ def phase_perf(profile: bool) -> dict:
                 train.train_step(params, optimizer, tokens, config)
             profile_train_step(params, optimizer, tokens, config, result["step_time_ms"],
                                window="perf_train_step")
-        return launches
+        return {k: launches[k] - zoo_launches[k] for k in launches}, zoo_launches
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         os.environ.clear()
@@ -1313,13 +1369,20 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
 # One step line of the twin; the ranks' lines share one pipe, so they are
 # found anywhere in it, not line by line.
 _TWIN_STEP = re.compile(
-    r"step (\d+) loss ([-\d.]+) \(([\d.]+) ms, \d+ tok/s, launches (\{[^}]*\})\)")
+    r"step (\d+) loss ([-\d.]+) \(([\d.]+) ms, \d+ (?:tok|img)/s, launches (\{[^}]*\})\)")
 
 
 def launch_gang(module: str, argv: list, ranks: int) -> list:
     """``module`` started by the pod's launcher on a one-pod bind info of
     ``ranks`` cards, one process per card; returns each step line's (step,
     loss, ms, launches) from every rank."""
+    return [m.groups() for m in _TWIN_STEP.finditer(launch_pod(module, argv, ranks))]
+
+
+def launch_pod(module: str, argv: list, ranks: int) -> str:
+    """``module`` started by the pod's launcher on a one-pod bind info of
+    ``ranks`` cards, one process per card; prints and returns the ranks'
+    standard output (one pipe)."""
     workdir = tempfile.mkdtemp(prefix="chip_smoke_gang_")
     try:
         bind_info = os.path.join(workdir, "pod-bind-info.json")
@@ -1339,14 +1402,22 @@ def launch_gang(module: str, argv: list, ranks: int) -> list:
     print(proc.stdout, end="", flush=True)
     if proc.returncode != 0:
         raise AssertionError(f"the launched {module} gang exited {proc.returncode}")
-    return [m.groups() for m in _TWIN_STEP.finditer(proc.stdout)]
+    return proc.stdout
 
 
-def check_gang(name: str, one: list, lines: list, ranks: int, launches, **fields) -> None:
+def resnet_summaries(stdout: str) -> list:
+    """Each rank's ``resnet summary {...}`` line of the ResNet twin."""
+    return [json.loads(line[len("resnet summary "):]) for line in stdout.splitlines()
+            if line.startswith("resnet summary ")]
+
+
+def check_gang(name: str, one: list, lines: list, ranks: int, launches, gated_steps=None,
+               **fields) -> None:
     """Hold a launched gang's step lines to the one-card run ``one``: every
-    rank reports the same loss, within GANG_TOL of one card's, and launched
-    each kernel ``launches`` times a step (a number, or one per kernel);
-    logs the step times."""
+    rank reports the same loss, within GANG_TOL of one card's in the first
+    ``gated_steps`` steps (all by default; the rest are logged with their
+    gaps), and launched each kernel ``launches`` times a step (a number, or
+    one per kernel); logs the step times."""
     import ast
 
     if len(lines) != ranks * len(one):
@@ -1358,7 +1429,7 @@ def check_gang(name: str, one: list, lines: list, ranks: int, launches, **fields
         if len(got) != 1:
             raise AssertionError(f"{name} step {i}: the ranks report different losses {got}")
         losses.append(got.pop())
-        if abs(losses[-1] - r["loss"]) > GANG_TOL:
+        if (gated_steps is None or i < gated_steps) and abs(losses[-1] - r["loss"]) > GANG_TOL:
             raise AssertionError(f"{name} step {i}: gang loss {losses[-1]} vs one card {r['loss']}")
         step_ms.append(max(float(st[2]) for st in mine))
         for st in mine:
@@ -1368,7 +1439,8 @@ def check_gang(name: str, one: list, lines: list, ranks: int, launches, **fields
     mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
     one_ms = sum(r["step_ms"] for r in one[1:]) / len(one[1:])
     log("gang", step=name, ranks=ranks, losses=losses, losses_one_card=[r["loss"] for r in one],
-        tol=GANG_TOL, step_ms=step_ms, step_ms_mean=mean_ms, one_card_step_ms_mean=one_ms,
+        loss_gaps=[abs(a - r["loss"]) for a, r in zip(losses, one)], tol=GANG_TOL,
+        gated_steps=gated_steps or len(one), step_ms=step_ms, step_ms_mean=mean_ms, one_card_step_ms_mean=one_ms,
         speedup=one_ms / mean_ms, launches_per_rank_step=launches, **fields)
 
 
@@ -1385,7 +1457,8 @@ def phase_gang() -> int:
     import torch
 
     from hivedscheduler_tpu_torch.tools import dryrun
-    from hivedscheduler_tpu_torch.workloads import train_longctx, train_mixtral, train_pp
+    from hivedscheduler_tpu_torch.workloads import (train_longctx, train_mixtral, train_pp,
+                                                    train_resnet)
 
     count = torch.cuda.device_count()
     if count < 2:
@@ -1440,6 +1513,25 @@ def phase_gang() -> int:
                {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers, "flash_bwd_dq": layers},
                mesh=dataclasses.asdict(train_mixtral.mesh_config(ranks)), layers=layers,
                batch=[train_mixtral.ROWS_PER_SHARD, train_mixtral.SEQ])
+
+    # The ResNet twin at dp 4 (BASELINE config 2) against one card at the
+    # global batch: the same images, so batch norm's statistics must be the
+    # global batch's, equal on every rank (their digest). Only the first
+    # step's loss, before any update, is held to GANG_TOL: in bf16 at random
+    # init a step of SGD at lr 0.1 moves the loss by more than two
+    # summation orders' rounding (0.03 apart after one step on four H100s).
+    rg = RESNET_GANG
+    one = train_resnet.main(["--batch", str(rg["batch"] * ranks), "--steps", str(rg["steps"])])
+    torch.cuda.empty_cache()
+    out = launch_pod("hivedscheduler_tpu_torch.workloads.train_resnet",
+                     ["--batch", str(rg["batch"]), "--steps", str(rg["steps"])], ranks)
+    digests = {r["bn_stats_digest"] for r in resnet_summaries(out)}
+    if len(resnet_summaries(out)) != ranks or len(digests) != 1:
+        raise AssertionError(f"resnet dp {ranks}: the ranks' running stats differ: {digests}")
+    check_gang("resnet", one, [m.groups() for m in _TWIN_STEP.finditer(out)], ranks, 0,
+               gated_steps=1, mesh={"dp": ranks}, batch_per_card=rg["batch"], image_size=train_resnet.IMAGE_SIZE,
+               bn_stats_equal_on_ranks=True,
+               images_per_s_one_card=rg["batch"] * ranks / (one[-1]["step_ms"] * 1e-3))
     return ranks
 
 
@@ -1476,13 +1568,19 @@ def phase_longctx() -> dict:
     return launches
 
 
+def remat_launches(n_layers: int) -> dict:
+    """Each kernel's launches in one training step under full remat: the
+    forward twice a layer, each backward once."""
+    return {"flash_fwd": 2 * n_layers, "flash_bwd_dkdv": n_layers, "flash_bwd_dq": n_layers}
+
+
 def small_card_vs_cpu(phase: str, cpu_params, card_params, make_optimizer, step,
-                      n_steps: int, n_layers: int) -> dict:
+                      n_steps: int, want: dict) -> dict:
     """``n_steps`` of ``step(params, optimizer, device) -> loss`` from the
-    same f32 weights on the CPU and on the card, under full remat: the
-    losses, the step-1 gradients and the parameters after the steps must
-    agree within TRAIN_TOL, and each card step must launch the forward
-    kernel twice a layer and each backward kernel once. Logs the fields."""
+    same weights on the CPU and on the card: the losses, the step-1
+    gradients and the parameters after the steps must agree within
+    TRAIN_TOL, and each card step must launch each kernel as ``want`` says.
+    Logs the fields."""
     from hivedscheduler_tpu_torch.models import transformer
     from hivedscheduler_tpu_torch.ops import attention as A
 
@@ -1509,7 +1607,6 @@ def small_card_vs_cpu(phase: str, cpu_params, card_params, make_optimizer, step,
     fields = {"losses_cpu": cpu_losses, "losses_card": card_losses, "loss_gap": loss_gap,
               "grad_max_rel": grad_rel, "param_mean_abs_diff": param_mean, "tol": TRAIN_TOL,
               "launches_per_step": card_launches}
-    want = {"flash_fwd": 2 * n_layers, "flash_bwd_dkdv": n_layers, "flash_bwd_dq": n_layers}
     if any(n != want for n in card_launches):
         raise AssertionError(f"small {phase} step launches {card_launches}, not {want}")
     if (loss_gap > TRAIN_TOL["loss"] or grad_rel > TRAIN_TOL["grad_max_rel"]
@@ -1542,7 +1639,7 @@ def phase_bert(seed: int, profile: bool) -> dict:
         "bert", cpu_params, card_params, train_bert.make_optimizer,
         lambda params, opt, device: train_bert.train_step(params, opt, tokens.to(device),
                                                           targets.to(device), config),
-        BERT_SMALL["steps"], config.n_layers)
+        BERT_SMALL["steps"], remat_launches(config.n_layers))
     del card_params, cpu_params
 
     # (b) BERT-large, nothing cut, on one fixed masked batch.
@@ -1620,7 +1717,7 @@ def phase_mixtral(seed: int, profile: bool) -> dict:
         "mixtral", cpu_params, card_params, train_mixtral.make_optimizer,
         lambda params, opt, device: train_mixtral.train_step(params, opt, tokens.to(device),
                                                              config),
-        sm["steps"], config.n_layers)
+        sm["steps"], remat_launches(config.n_layers))
     ffn = mixtral.decode_ffn(config)
     new = [generate.generate(params, tokens.to(device), config, sm["new_tokens"],
                              ffn=ffn)[:, config.max_seq_len:].cpu()
@@ -1726,6 +1823,104 @@ def phase_mixtral(seed: int, profile: bool) -> dict:
         del params, optimizer
     torch.cuda.empty_cache()
     return {k: serve_launches[k] + train_launches[k] for k in train_launches}
+
+
+def phase_zoo(seed: int, profile: bool) -> dict:
+    """The zoo's other models (see the module docstring, phase 12): (a) a
+    small f64 ResNet on the card against the CPU; (b) the ResNet-50 twin
+    through the pod's launcher at its published shape, with ``profile`` its
+    device time by kernel over one more step in this process; (c) the MNIST
+    twin on the card. Returns each kernel's launches (none is expected)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import convert, resnet, transformer
+    from hivedscheduler_tpu_torch.ops import attention as A
+    from hivedscheduler_tpu_torch.workloads import train_mnist, train_resnet
+
+    _reset_launches()
+    # (a) Two twin steps from the same f64 weights on each side; the running
+    # stats are carried from step to step on each side and compared after.
+    sm = RESNET_SMALL
+    config = resnet.ResNetConfig(**sm["config"], dtype=torch.float64)
+    params, stats = resnet.init(config, torch.Generator().manual_seed(seed), "cpu")
+    side = {device: [convert.params_from_jax(convert.params_to_numpy(t), device, torch.float64)
+                     for t in (params, stats)] for device in ("cpu", "cuda")}
+    images, labels = train_resnet.synthetic_batch(np.random.default_rng(seed + 10), sm["batch"],
+                                                  sm["size"], config.num_classes)
+    images = images.double()
+
+    def step(p, opt, device):
+        loss, side[device][1] = train_resnet.train_step(p, side[device][1], opt, images.to(device),
+                                                        labels.to(device), config)
+        return loss
+
+    small_card_vs_cpu("zoo", side["cpu"][0], side["cuda"][0], train_resnet.make_optimizer, step,
+                      sm["steps"], dict.fromkeys(A.kernel_launches(), 0))
+    pairs = list(zip(transformer.leaves(side["cpu"][1]), transformer.leaves(side["cuda"][1])))
+    stats_rel = max(((c - g.cpu()).abs().max() / c.abs().max()).item() for c, g in pairs)
+    if stats_rel > TRAIN_TOL["stats_max_rel"]:
+        raise AssertionError(f"small ResNet's running stats: card vs CPU {stats_rel} of max")
+    log("zoo", step="small_stats_card_vs_cpu", max_rel=stats_rel,
+        max_abs_diff=max((c - g.cpu()).abs().max().item() for c, g in pairs),
+        largest=max(c.abs().max().item() for c, _ in pairs), tol=TRAIN_TOL["stats_max_rel"])
+    del side
+
+    # (b) The ResNet-50 twin through the pod's launcher, one card.
+    rn = RESNET
+    out = launch_pod("hivedscheduler_tpu_torch.workloads.train_resnet",
+                     ["--batch", str(rn["batch"]), "--image-size", str(rn["size"]),
+                      "--steps", str(rn["warmup"] + rn["timed"])], 1)
+    steps = [m.groups() for m in _TWIN_STEP.finditer(out)]
+    summary = resnet_summaries(out)
+    losses = [float(st[1]) for st in steps]
+    if len(steps) != rn["warmup"] + rn["timed"] or len(summary) != 1:
+        raise AssertionError(f"the ResNet twin printed {len(steps)} steps and "
+                             f"{len(summary)} summaries")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite ResNet loss: {losses}")
+    if abs(losses[0] - np.log(1000)) > LOSS_BAND:
+        raise AssertionError(f"first ResNet loss {losses[0]} is not within {LOSS_BAND} of ln(1000)")
+    if not (summary[0]["bn_mean_abs_max"] > 0 and summary[0]["bn_var_dev_max"] > 0):
+        raise AssertionError(f"the running stats did not move from (0, 1): {summary[0]}")
+    timed = [float(st[2]) for st in steps[rn["warmup"]:]]
+    step_ms = sum(timed) / len(timed)
+    log("zoo", step="resnet50", **rn, losses=losses, step_ms=timed, step_ms_mean=step_ms,
+        images_per_s=rn["batch"] / (step_ms * 1e-3), **summary[0])
+    if profile:
+        config = resnet.ResNetConfig()
+        params, stats = resnet.init(config, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        optimizer = train_resnet.make_optimizer(params)
+        images, labels = (t.cuda() for t in train_resnet.synthetic_batch(
+            np.random.default_rng(1), rn["batch"], rn["size"], config.num_classes))
+        state = {"stats": stats}
+
+        def resnet_step():
+            loss, state["stats"] = train_resnet.train_step(params, state["stats"], optimizer,
+                                                           images, labels, config)
+            return loss
+
+        for _ in range(2):  # warm-up
+            float(resnet_step())
+        profile_step(resnet_step, step_ms, "resnet50_step")
+        del params, optimizer, state
+        torch.cuda.empty_cache()
+
+    # (c) The MNIST twin on the card.
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        losses = train_mnist.main([])
+    print(printed.getvalue(), end="", flush=True)
+    if not (printed.getvalue().splitlines()[-1] == "done" and losses[-1] < losses[0]):
+        raise AssertionError(f"MNIST: losses {losses[0]} -> {losses[-1]}")
+    log("zoo", step="mnist", steps=len(losses), first_loss=losses[0], last_loss=losses[-1])
+    launches = A.kernel_launches()
+    if set(launches.values()) != {0}:
+        raise AssertionError(f"the zoo's ResNet and MNIST launched {launches}")
+    return launches
 
 
 def device_time_rows(prof) -> list:
@@ -1857,8 +2052,8 @@ def main() -> int:
                         help="also print device time by kernel over one request, "
                              "over one training step and over one step of the "
                              "perf harness's model, unsharded and sharded, "
-                             "over one BERT-large step and over Mixtral's "
-                             "request and step")
+                             "over one BERT-large step, over Mixtral's "
+                             "request and step and over one ResNet-50 step")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel checks and timings (phase 3)")
     parser.add_argument("--gang-only", action="store_true",
@@ -1904,11 +2099,13 @@ def main() -> int:
     s = timed("serve", phase_serve, args.seed, args.profile)
     t = timed("train", phase_train, args.seed, args.profile)
     w = timed("workloads", phase_workloads, args.seed)
-    p = timed("perf", phase_perf, args.profile)
+    p, zoo = timed("perf", phase_perf, args.profile)
     sh = timed("sharded", phase_sharded, args.seed, args.profile, s, t)
     lc = timed("longctx", phase_longctx)
     bt = timed("bert", phase_bert, args.seed, args.profile)
     mx = timed("mixtral", phase_mixtral, args.seed, args.profile)
+    zo = timed("zoo", phase_zoo, args.seed, args.profile)
+    zoo = {k: zoo[k] + zo[k] for k in zoo}  # the perf harness's zoo stage and phase 12
 
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     kernels = [{
@@ -1917,11 +2114,13 @@ def main() -> int:
         "source": source + "flash_fwd.cu",
         "replaces": "hivedscheduler_tpu/ops/attention.py:133",
         "launches": (s["launches"] + t["launches"]["flash_fwd"] + w["flash_fwd"] + p["flash_fwd"]
-                     + sh["flash_fwd"] + lc["flash_fwd"] + bt["flash_fwd"] + mx["flash_fwd"]),
+                     + sh["flash_fwd"] + lc["flash_fwd"] + bt["flash_fwd"] + mx["flash_fwd"]
+                     + zoo["flash_fwd"]),
         "launches_by_path": {"serve": s["launches"], "train": t["launches"]["flash_fwd"],
                              "workloads": w["flash_fwd"], "perf": p["flash_fwd"],
                              "sharded": sh["flash_fwd"], "longctx": lc["flash_fwd"],
-                             "bert": bt["flash_fwd"], "mixtral": mx["flash_fwd"]},
+                             "bert": bt["flash_fwd"], "mixtral": mx["flash_fwd"],
+                             "zoo": zoo["flash_fwd"]},
         # Held at the serving shape and at the training shape.
         "max_abs_err": max(k["o_max_abs_err"], kb["fwd"]["o_max_abs_err"]),
         **{key + suffix: fields[src] for suffix, fields in (("", k), ("_train", kb["fwd"]))
@@ -1939,10 +2138,10 @@ def main() -> int:
             "source": source + "flash_bwd.cu",
             "replaces": f"hivedscheduler_tpu/ops/attention.py:{line}",
             "launches": (t["launches"][name] + w[name] + p[name] + sh[name] + lc[name] + bt[name]
-                         + mx[name]),
+                         + mx[name] + zoo[name]),
             "launches_by_path": {"train": t["launches"][name], "workloads": w[name],
                                  "perf": p[name], "sharded": sh[name], "longctx": lc[name],
-                                 "bert": bt[name], "mixtral": mx[name]},
+                                 "bert": bt[name], "mixtral": mx[name], "zoo": zoo[name]},
             "max_abs_err": kb[f"{kind}_max_abs_err"],
             "ms": kb[kind]["ms"],
             "plain_ms": kb[kind]["plain_ms"],

@@ -37,6 +37,13 @@ with expert parallelism over ep (the twin ``workloads/train_mixtral.py``;
 ``python -m hivedscheduler_tpu_torch.serve --model mixtral_8x7b``, its
 routed FFN in ``generate``'s ``ffn`` hook); on the CPU, ``--model tiny``
 and ``--model mixtral_tiny`` with ``--device cpu`` run them at test size.
+ResNet-50 (``models/resnet.py``: ``channels_last`` convs with XLA's SAME
+padding, batch norm whose statistics are the global batch's on a dp x
+fsdp gang) trains through the twin ``workloads/train_resnet.py``; the
+perf harness's zoo stage (``models/perf.bench_zoo``, ``HIVED_PERF_ZOO=1``)
+times BERT-large, ResNet-50 and the bench model's decode on one card, and
+``workloads/train_mnist.py`` is the MNIST twin: every workload of
+``example/workloads/`` has its twin.
 """
 
 from __future__ import annotations

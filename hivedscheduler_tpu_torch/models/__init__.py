@@ -1,6 +1,6 @@
 """Models of the port: the Llama-style transformer, its training step,
-BERT-large (``bert.py``), the Mixtral MoE (``mixtral.py``),
-KV-cache generation, int8 quantization, checkpoints, the perf harness and
+BERT-large (``bert.py``), the Mixtral MoE (``mixtral.py``), ResNet-50
+(``resnet.py``), KV-cache generation, int8 quantization, checkpoints, the perf harness and
 the converter from the JAX package's parameters."""
 
 from typing import Any

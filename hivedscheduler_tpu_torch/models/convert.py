@@ -1,9 +1,10 @@
 """Parameters of the JAX package, as numpy arrays, to the port's and back.
 
 The two packages share one layout (stacked ``[n_layers, ...]`` leaves,
-``[in, out]`` matrices), so conversion is a leaf-by-leaf copy: no renames,
-no transposes. Int8-quantized leaves (``{"w": int8, "scale": f32}``) keep
-their int8 weights.
+``[in, out]`` matrices, ResNet's HWIO conv weights), so conversion is a
+leaf-by-leaf copy: no renames, no transposes. Trees are dicts and lists
+(ResNet's ``stages`` are a list of lists of blocks). Int8-quantized leaves
+(``{"w": int8, "scale": f32}``) keep their int8 weights.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ def params_from_jax(
     def convert(node):
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v) for v in node]
         a = np.asarray(node)
         if a.dtype == np.int8:
             return torch.from_numpy(a.copy()).to(device)
@@ -43,6 +46,8 @@ def params_to_numpy(tree: Any) -> Any:
     gathered whole, so every rank of their mesh must call it."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to_numpy(v) for v in tree]
     t = tree.detach()
     if hasattr(t, "full_tensor"):  # a DTensor: the whole leaf (a collective)
         t = t.full_tensor()

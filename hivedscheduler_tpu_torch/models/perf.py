@@ -6,7 +6,9 @@ model's whole training step (forward, backward, AdamW) on one card and
 reports tokens/s and model-FLOPs utilisation against the card's dense bf16
 peak, then a flash-vs-plain attention fwd+bwd at 8k tokens; optional
 stages (``HIVED_PERF_LONGCTX=1``, ``HIVED_PERF_DECODE=1``) add train-step
-rows at 16k and 32k tokens and a decode-throughput sweep. Run as::
+rows at 16k and 32k tokens and a decode-throughput sweep, and
+``HIVED_PERF_ZOO=1`` times the model zoo's steps on the card (BERT-large,
+ResNet-50 and the bench model's decode, ``bench_zoo``). Run as::
 
     python -m hivedscheduler_tpu_torch.models.perf [--device cpu]
 
@@ -14,7 +16,7 @@ It prints one JSON object. A card run that passes the guards is persisted
 to ``example/logs/perf_last_measured_torch*.json`` (``HIVED_PERF_ARTIFACT``
 overrides the path). Nothing falls back: a kernel that fails raises and the
 run exits non-zero; the optional stages record a failing row as an
-``error`` row. ``bench_zoo`` waits for the port's model zoo.
+``error`` row (the zoo, a whole stage, as an ``error`` dict).
 """
 
 from __future__ import annotations
@@ -374,6 +376,106 @@ def bench_decode_sweep(on_gpu: bool) -> List[dict]:
     return rows
 
 
+def bench_zoo(on_gpu: bool) -> dict:
+    """Optional (``HIVED_PERF_ZOO=1``): one-card step timings of the other
+    model families, the JAX package's ``bench_zoo`` at its sizes. On the
+    card: BERT-large's training step at 8 x 512 with ``optax.adamw(1e-4)``'s
+    AdamW, ResNet-50's at 64 x 224^2 in bf16 with SGD(0.1, momentum 0.9),
+    and the bench model's decode at batch 8 after a 128-token prompt, 32 new
+    tokens (``decode_step`` in a loop, then ``generate_greedy_scan``); off
+    it, BERT tiny at 2 x 64, ResNet-50 at 2 x 32^2 and decode at batch 2
+    after 16 tokens, 8 new. Each training stage takes one warm-up step, then
+    the mean of n timed steps (4 on the card, 2 off it).
+
+    The BERT step keeps the JAX package's quirk: it passes the boolean mask
+    as ``mlm_loss``'s targets, whose ``targets >= 0`` then holds everywhere,
+    so every position is scored against token 0 or 1 (not the MLM
+    objective). The port passes ``mask.long()``, the same function at the
+    same cost. ``launches`` counts each kernel by stage over its warm-up and
+    timed calls (the BERT step runs all three; the 128-token prefill is
+    shorter than the flash dispatch's 256 and runs the plain attention, in
+    both packages)."""
+    from ..workloads import train_bert, train_resnet
+    from . import bert, resnet
+
+    device = _device(on_gpu)
+    n = 4 if on_gpu else 2
+    out: dict = {"launches": {}}
+
+    def timed(name, step):
+        before = att.kernel_launches()
+        host_sync(step())  # warm-up
+        dt = time_steps(step, (), n)
+        out["launches"][name] = _launches_since(before)
+        return dt
+
+    bconfig = bert.bert_large() if on_gpu else bert.tiny()
+    bbatch, bseq = (8, 512) if on_gpu else (2, 64)
+    bparams = bert.init(bconfig, torch.Generator(device=device).manual_seed(0), device)
+    bopt = train_bert.make_optimizer(bparams)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, bconfig.vocab_size, size=(bbatch, bseq))).to(device)
+    mask = torch.from_numpy(np.random.default_rng(2).random((bbatch, bseq)) < 0.15).to(device)
+    bdt = timed("bert", lambda: train_bert.train_step(bparams, bopt, tokens, mask.long(),
+                                                      bconfig))
+    out["bert_large_step_ms"] = round(bdt * 1e3, 2)
+    out["bert_tokens_per_sec"] = round(bbatch * bseq / bdt, 1)
+    del bparams, bopt
+
+    rconfig = resnet.ResNetConfig()
+    rbatch, rsize = (64, 224) if on_gpu else (2, 32)
+    rparams, rstats = resnet.init(rconfig, torch.Generator(device=device).manual_seed(0), device)
+    ropt = train_resnet.make_optimizer(rparams)
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.standard_normal((rbatch, rsize, rsize, 3), dtype=np.float32)
+                              ).to(device, torch.bfloat16)
+    labels = torch.from_numpy(np.random.default_rng(4).integers(
+        0, rconfig.num_classes, rbatch)).to(device)
+    state = {"stats": rstats}
+
+    def resnet_step():
+        loss, state["stats"] = train_resnet.train_step(rparams, state["stats"], ropt, images,
+                                                       labels, rconfig)
+        return loss
+
+    rdt = timed("resnet", resnet_step)
+    out["resnet50_step_ms"] = round(rdt * 1e3, 2)
+    out["resnet50_images_per_sec"] = round(rbatch / rdt, 1)
+    del rparams, ropt, state
+    if on_gpu:
+        torch.cuda.empty_cache()
+
+    gconfig, _, _ = bench_config(on_gpu)
+    gparams = _flagship_params(gconfig, device)
+    gbatch, prompt_len, new_tokens = (8, 128, 32) if on_gpu else (2, 16, 8)
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(
+        0, gconfig.vocab_size, size=(gbatch, prompt_len))).to(device)
+    before = att.kernel_launches()
+    with torch.inference_mode():
+        cache = generate.init_cache(gconfig, gbatch, prompt_len + new_tokens + 1, device=device)
+        logits, cache = generate.prefill(gparams, prompt, cache, gconfig)
+        token = logits.argmax(-1)
+        # Warm decode_step, then time the steady-state loop on the same token.
+        host_sync(generate.decode_step(gparams, token, cache, gconfig)[0])
+        t0 = time.perf_counter()
+        for _ in range(new_tokens):
+            logits, cache = generate.decode_step(gparams, token, cache, gconfig)
+        host_sync(logits)
+        gdt = (time.perf_counter() - t0) / new_tokens
+    out["decode_step_ms"] = round(gdt * 1e3, 2)
+    out["decode_tokens_per_sec"] = round(gbatch / gdt, 1)
+
+    # Prefill and every step in one call, as the JAX package's one program.
+    host_sync(generate.generate_greedy_scan(gparams, prompt, gconfig, new_tokens))
+    t0 = time.perf_counter()
+    host_sync(generate.generate_greedy_scan(gparams, prompt, gconfig, new_tokens))
+    sdt = (time.perf_counter() - t0) / new_tokens
+    out["decode_scan_step_ms"] = round(sdt * 1e3, 2)
+    out["decode_scan_tokens_per_sec"] = round(gbatch / sdt, 1)
+    out["launches"]["decode"] = _launches_since(before)
+    return out
+
+
 def artifact_path(model: Optional[str] = None) -> str:
     """Where a successful card run is persisted: ``example/logs/``, beside
     the JAX package's artifacts and never over them
@@ -397,9 +499,8 @@ def artifact_path(model: Optional[str] = None) -> str:
     return os.path.join(root, "example", "logs", name)
 
 
-# The optional stages that persist_result carries forward across runs: the
-# JAX package's list without "zoo", which joins it with the model zoo.
-CARRY_STAGES = ("long_context", "decode_sweep")
+# The optional stages that persist_result carries forward across runs.
+CARRY_STAGES = ("long_context", "zoo", "decode_sweep")
 
 
 def carried_provenance(record: dict, stage: str) -> dict:
@@ -523,6 +624,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     result.update(bench_attention(on_gpu))
     if os.environ.get("HIVED_PERF_LONGCTX", "0") == "1":
         result["long_context"] = bench_long_context(on_gpu)
+    if os.environ.get("HIVED_PERF_ZOO", "0") == "1":
+        try:
+            result["zoo"] = bench_zoo(on_gpu)
+        except Exception as exc:  # optional stage: degrade to an error dict
+            result["zoo"] = _error_row(exc)
     if os.environ.get("HIVED_PERF_DECODE", "0") == "1":
         result["decode_sweep"] = bench_decode_sweep(on_gpu)
     persist_result(result, on_gpu)

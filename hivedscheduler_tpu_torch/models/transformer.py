@@ -246,9 +246,11 @@ def cast(tree: Any, dtype: torch.dtype) -> Any:
 
 
 def leaves(tree: Any) -> List[torch.Tensor]:
-    """The tensors of a parameter tree, in its (insertion) order."""
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in leaves(v)]
+    """The tensors of a parameter tree of dicts and lists, in its
+    (insertion) order."""
+    if isinstance(tree, (dict, list)):
+        return [t for v in (tree.values() if isinstance(tree, dict) else tree)
+                for t in leaves(v)]
     return [tree]
 
 

@@ -206,6 +206,8 @@ def to_local(tree: Any) -> Any:
     pass through."""
     if isinstance(tree, dict):
         return {k: to_local(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_local(v) for v in tree]
     return tree.to_local() if isinstance(tree, DTensor) else tree
 
 

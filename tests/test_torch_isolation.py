@@ -37,7 +37,8 @@ def test_import_pulls_in_no_jax():
     assert "hivedscheduler_tpu_torch.models.perf" in mods
     for name in ("parallel.mesh", "parallel.sharding", "utils.data", "workloads.common",
                  "models.checkpoint", "tools.mfu_sweep", "tools.dryrun", "models.mixtral",
-                 "workloads.train_mixtral"):
+                 "workloads.train_mixtral", "models.resnet", "workloads.train_resnet",
+                 "workloads.train_mnist"):
         assert f"hivedscheduler_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

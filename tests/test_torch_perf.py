@@ -119,8 +119,8 @@ RESULTS = [
 @pytest.mark.parametrize("on_card", [True, False])
 def test_persist_result_matches_jax(tmp_path, monkeypatch, result, previous, on_card):
     monkeypatch.setattr("hivedscheduler_tpu.ops.attention.pallas_wanted", lambda: True)
-    # The same rules over the port's stages: "zoo" waits for the model zoo.
-    assert set(TP.CARRY_STAGES) == set(JP.CARRY_STAGES) - {"zoo"}
+    # The same rules over the same stages.
+    assert set(TP.CARRY_STAGES) == set(JP.CARRY_STAGES)
     monkeypatch.setattr(JP, "CARRY_STAGES", TP.CARRY_STAGES)
     records = []
     for name, persist in (("jax", JP.persist_result), ("torch", TP.persist_result)):
@@ -134,8 +134,9 @@ def test_persist_result_matches_jax(tmp_path, monkeypatch, result, previous, on_
             assert rec.pop("provenance")["measured_at"] != PROV["measured_at"]
         records.append(rec)
     assert records[1] == records[0]
-    if records[1] not in (None, previous):
-        assert "zoo" not in records[1]
+    if previous is not None and records[1] not in (None, previous):
+        # The zoo's rows are carried forward, as the other stages' are.
+        assert records[1]["zoo"] == previous["zoo"]
 
 
 def test_artifact_path_sits_beside_the_jax_ones(monkeypatch):
