@@ -36,7 +36,9 @@ neither the kernels line nor the last line, since no main path ran):
              shard of its twin, B8 H8 as its tp 2 rank) and one microbatch
              of the pipeline twin's stage on four cards (B2 S4096 H16/Hkv4,
              causal) are held and timed with all three kernels too, and so
-             is Mixtral's training batch (B4 S4096 H32/Hkv8 D128, causal).
+             is Mixtral's training batch (B4 S4096 H32/Hkv8 D128, causal),
+             and a tp 4 serving rank's prefill (B4 S2048 H8/Hkv2 D128,
+             causal) is held and timed beside SDPA.
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
              tokens through the serving entry point. Launch counts are set
@@ -44,8 +46,11 @@ neither the kernels line nor the last line, since no main path ran):
              launch the flash kernel. Against the uncached ``forward()``
              over prompt + generated tokens, the first new token must be
              its argmax in >= 3 of 4 rows, and every generated token's logit
-             must be within MAX_LOGIT_GAP of its position's best. Then a
-             short int8 request, whose launches must count.
+             must be within MAX_LOGIT_GAP of its position's best. Then the
+             int8-quantized weights serve one request of the same traffic
+             after a warm-up (its TTFT and decode rate beside bf16's); every
+             prefill layer must launch the flash kernel; its tokens go to
+             phase 8.
 5. train   - after serving's weights are freed. (a) a tiny f32 model (4/2
              heads, head_dim 32, S 256, remat "flash") takes 2 AdamW steps
              on the card and 2 on the CPU from the same weights: the losses,
@@ -76,8 +81,10 @@ neither the kernels line nor the last line, since no main path ran):
              ones bit for bit, as must one more step on each. Then the
              serving entry point (``serve.main --ckpt``) on that checkpoint,
              whose greedy tokens must equal ``serve.run_request``'s on the
-             trainer's parameters cast to bf16; every prefill layer must
-             launch the flash kernel.
+             trainer's parameters cast to bf16, and ``serve.main --ckpt
+             --int8``, whose tokens must equal ``serve.run_request``'s on
+             ``quantize.quantize_params`` of the trainer's f32 masters; every
+             prefill layer must launch the flash kernel.
 7. perf    - the perf harness (``models/perf.main``) with its decode,
              long-context and zoo stages, its artifact in a temporary file:
              no error or rejected row and no zoo error dict, every MFU in
@@ -101,7 +108,10 @@ neither the kernels line nor the last line, since no main path ran):
              Then, after a short warm-up request, phase 4's first prompt
              through the sharded serving path at 32 layers, whose 8 greedy
              tokens must equal phase 4's first 8, every prefill layer
-             launching the flash kernel. With two cards or more, a 2-rank
+             launching the flash kernel; then ``serve.build(..., int8=True,
+             mesh=...)`` quantizes on the mesh and serves phase 4's int8
+             prompt, whose 8 tokens must equal phase 4's int8 first 8 bit for
+             bit. With two cards or more, a 2-rank
              (4 with four cards) NCCL gang of the tiny model
              (``tools/dryrun.py``, every row that fits: at 4 ranks the
              sequence rows ``fsdp_sp_tp`` and ``ulysses-sp`` and the
@@ -123,8 +133,16 @@ neither the kernels line nor the last line, since no main path ran):
              first loss (before any update) within GANG_TOL, the later
              ones logged with their gaps (in bf16 at random init a step of
              SGD moves them by more than rounding), its batch norm's
-             running stats equal on the four ranks (their digest). With
-             one card, the summary records ``"nccl_ranks": 1``.
+             running stats equal on the four ranks (their digest). Last, the
+             serving gang: ``serve.main`` with SERVE_GANG's argv (Llama-3-8B,
+             32 layers, 4 x 2048, 8 greedy tokens, 2 requests) through the
+             launcher at tp 4, in bf16 and with ``--int8``, against the same
+             argv on one card: the first new token agrees with one card's
+             in >= 3 of 4 rows, every rank launches the flash kernel once a
+             layer a request, the ranks' int8 shard digests are those of one
+             card's quantized tree's tp blocks; TTFT, decode rate and peak
+             memory a rank beside one card's. With one card, the summary
+             records ``"nccl_ranks": 1``.
 9. longctx - the long-context twin (``workloads/train_longctx.py``) at
              Llama-3-8B's full width, depth cut to 2 layers, 3 steps of
              one 32768-token row from the twin's seeds (on one card sp is 1, so the
@@ -192,7 +210,8 @@ line is ``{"ok": true, "device": {...}}``. Each
 kernel's ``tp_shapes`` holds its numbers at phase 3's per-rank tp shapes,
 ``sp_shapes`` at the Ulysses per-rank shapes, ``bert_shapes`` at BERT's,
 ``pp_shapes`` at the pipeline stage's and ``mixtral_shapes`` at Mixtral's
-training batch (B4 S4096 H32/Hkv8). In the kernels line, the forward's
+training batch (B4 S4096 H32/Hkv8); the forward's ``serve_tp4_shape`` at a
+tp 4 serving rank's prefill (B4 S2048 H8/Hkv2). In the kernels line, the forward's
 ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` and
 ``tflops`` are taken at the serving shape and ``ms_train``,
 ``plain_ms_train``, ``bound_ms_train``, ``bound_by_train``,
@@ -240,7 +259,9 @@ TOL_BWD_F32 = {"max": 1e-4, "mean": 1e-5}
 MAX_LOGIT_GAP = 0.25
 
 SERVE = {"batch": 4, "prompt": 2048, "new_tokens": 32, "requests": 2}
-INT8 = {"batch": 1, "prompt": 512, "new_tokens": 4}
+# Phase 4's int8 request: the bf16 requests' traffic, one request after a
+# short warm-up (phase 8 serves its prompt again on a one-rank mesh).
+INT8 = {"batch": 4, "prompt": 2048, "new_tokens": 32}
 
 TRAIN = {"model": "llama3_8b", "layers": 8, "batch": 1, "seq": 8192, "warmup": 2,
          "timed": 4, "remat_policy": "flash"}
@@ -279,6 +300,15 @@ SP_SHAPES = {8: (2, 4, 1), 16: (4, 2, 2), 32: (8, 1, 1)}
 # head) cannot exist.
 SP_CHECK_SEQ, SP_TIME_SEQ = 32768, 131072
 SHARDED_SERVE = {"batch": 4, "prompt": 2048, "new_tokens": 8}
+# The serving gang on four cards (tp 4 x fsdp 1: every rank holds the 4
+# rows and a quarter of the heads): serve.main's argv at 32 layers, in bf16
+# and with --int8, against the same argv on one card. The first new token
+# must agree with one card's in >= 3 of 4 rows (tp sums in another order).
+SERVE_GANG = ["--model", "llama3_8b", "--batch", "4", "--prompt-len", "2048",
+              "--new-tokens", "8", "--temperature", "0", "--requests", "2"]
+# A tp 4 serving rank's prefill attention (Llama-3-8B's 32/8 heads over tp
+# 4, phase 4's 4 x 2048): held and timed in phase 3.
+SERVE_TP4_SHAPE = (4, 2048, 8, 2, 128, True)
 # Phase 3's attention at the shapes this slice's paths give the kernels:
 # BERT-large (non-causal, 16 heads of 64, S512) as one batch shard of the
 # twin holds it (B8) and as its tp 2 rank (H8), and one microbatch of the
@@ -480,9 +510,10 @@ def time_fwd(q, k, v, causal) -> dict:
 
 
 def phase_kernels(seed: int) -> dict:
-    """Flash forward kernel vs its plain version at the serving shape and
-    the edge cases; returns the numbers of the main-path case for the
-    kernels line."""
+    """Flash forward kernel vs its plain version at the serving shape, a tp
+    4 serving rank's and the edge cases; returns the numbers of the
+    main-path case for the kernels line, the tp 4 rank's under
+    ``serve_tp4``."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as A
@@ -490,6 +521,7 @@ def phase_kernels(seed: int) -> dict:
     # (name, B, S, H, Hkv, D, causal, dtype, timed)
     cases = [
         ("main_path", 4, 2048, 32, 8, 128, True, torch.bfloat16, True),
+        ("serve_tp4", *SERVE_TP4_SHAPE, torch.bfloat16, True),
         ("b2_causal", 2, 2048, 32, 8, 128, True, torch.bfloat16, False),
         ("b2_s8192_causal", 2, 8192, 32, 8, 128, True, torch.bfloat16, False),
         ("b2_full", 2, 2048, 32, 8, 128, False, torch.bfloat16, True),
@@ -520,9 +552,11 @@ def phase_kernels(seed: int) -> dict:
         log("kernels", **fields)
         if name == "main_path":
             main = fields
+        elif name == "serve_tp4":
+            serve_tp4 = fields
         del q, k, v, out, lse
         torch.cuda.empty_cache()
-    return main
+    return {**main, "serve_tp4": serve_tp4}
 
 
 def bwd_stats(q, k, v, do, lse, delta, causal, dq, dk, dv) -> dict:
@@ -867,18 +901,23 @@ def phase_serve(seed: int, profile: bool, model: str = "llama3_8b",
     qparams = quantize.quantize_params(params)
     del params
     torch.cuda.empty_cache()
+    serve.run_request(qparams, prompt(1, 256), config, 2)  # warm-up, as for bf16
+    int8_prompt = prompt(INT8["batch"], INT8["prompt"])
+    torch.cuda.reset_peak_memory_stats()
     A.flash_attention.launches = 0
-    res = serve.run_request(qparams, prompt(INT8["batch"], INT8["prompt"]), config,
-                            INT8["new_tokens"])
+    res = serve.run_request(qparams, int8_prompt, config, INT8["new_tokens"])
     int8_launches = A.flash_attention.launches
     if int8_launches != config.n_layers:
         raise AssertionError(f"int8 request launched the flash kernel {int8_launches} times")
     if not ((res["tokens"] >= 0) & (res["tokens"] < config.vocab_size)).all():
         raise AssertionError("int8 request: token ids out of range")
     log("serve", step="int8", **INT8, ttft_ms=res["ttft_ms"],
-        decode_tok_s=res["decode_tok_s"], flash_launches=int8_launches)
-    return {"launches": launches, "results": results, "prompt0": prompts[0].cpu(),
-            "tokens0": results[0]["tokens"].cpu()}
+        decode_tok_s=res["decode_tok_s"], flash_launches=int8_launches,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        bf16_ttft_ms=results[-1]["ttft_ms"], bf16_decode_tok_s=results[-1]["decode_tok_s"])
+    return {"launches": launches + int8_launches, "results": results,
+            "prompt0": prompts[0].cpu(), "tokens0": results[0]["tokens"].cpu(),
+            "int8_prompt": int8_prompt.cpu(), "int8_tokens": res["tokens"].cpu()}
 
 
 def phase_train(seed: int, profile: bool) -> dict:
@@ -1051,7 +1090,7 @@ def workloads_job(seed: int, workdir: str) -> dict:
 
     from hivedscheduler_tpu_torch import serve
     from hivedscheduler_tpu_torch import train as entry
-    from hivedscheduler_tpu_torch.models import checkpoint, perf, train, transformer
+    from hivedscheduler_tpu_torch.models import checkpoint, perf, quantize, train, transformer
     from hivedscheduler_tpu_torch.utils.data import TokenFileDataset
 
     launched = {k: os.environ.get(k) for k in ("CUDA_VISIBLE_DEVICES", "RANK", "LOCAL_RANK",
@@ -1108,6 +1147,9 @@ def workloads_job(seed: int, workdir: str) -> dict:
     nbytes = _dir_bytes(ckdir)
     with torch.no_grad():
         served_ref = transformer.cast(job.params, config.dtype)  # what was saved, in bf16
+        # What --int8 must serve: the saved f32 masters quantized (copies:
+        # the step after the resume below moves the live masters).
+        int8_ref = transformer.cast(quantize.quantize_params(job.params), config.dtype)
 
     fresh = transformer.init(config, torch.Generator(device="cuda").manual_seed(seed + 7),
                              "cuda", dtype=torch.float32)
@@ -1135,37 +1177,44 @@ def workloads_job(seed: int, workdir: str) -> dict:
     del job, fresh, fresh_opt, live_state, rest_state, batch
     torch.cuda.empty_cache()
 
-    out = io.StringIO()
-    _reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        results = serve.main(["--model", WORKLOAD["model"], "--layers", str(layers),
-                              "--ckpt", ckdir, "--batch", str(SERVE_CKPT["batch"]),
-                              "--prompt-len", str(SERVE_CKPT["prompt"]),
-                              "--new-tokens", str(SERVE_CKPT["new_tokens"]),
-                              "--temperature", "0", "--requests", "1",
-                              "--seed", str(seed)])
-    serve_launches = entry.kernel_launches()
-    serve_s = time.perf_counter() - t0
-    print(out.getvalue(), end="", flush=True)
-    if f"restored checkpoint step {WORKLOAD['steps']} " not in out.getvalue():
-        raise AssertionError("serve.main did not print the restored step")
-    if serve_launches["flash_fwd"] != layers:
-        raise AssertionError(f"serving prefill launched the flash kernel "
-                             f"{serve_launches['flash_fwd']} times for {layers} layers")
     prompt = torch.from_numpy(serve.synthetic_tokens(
         np.random.default_rng(seed + 1), SERVE_CKPT["batch"], SERVE_CKPT["prompt"],
         config.vocab_size)).cuda()
-    ref = serve.run_request(served_ref, prompt, config, SERVE_CKPT["new_tokens"])
-    if not torch.equal(results[0]["tokens"], ref["tokens"]):
-        raise AssertionError("tokens served from the checkpoint differ from the "
-                             "trainer's parameters' tokens")
-    log("workloads", step="serve", **SERVE_CKPT, ttft_ms=results[0]["ttft_ms"],
-        decode_tok_s=results[0]["decode_tok_s"], tokens_equal_live=True,
-        launches=serve_launches, seconds=serve_s)
-    del served_ref
+    launches = dict(train_launches)
+    # The serving job on the checkpoint, in bf16 and with --int8: its tokens
+    # must be the live masters' (cast to bf16; quantized from f32).
+    for flags, live in (([], served_ref), (["--int8"], int8_ref)):
+        out = io.StringIO()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            results = serve.main(["--model", WORKLOAD["model"], "--layers", str(layers),
+                                  "--ckpt", ckdir, "--batch", str(SERVE_CKPT["batch"]),
+                                  "--prompt-len", str(SERVE_CKPT["prompt"]),
+                                  "--new-tokens", str(SERVE_CKPT["new_tokens"]),
+                                  "--temperature", "0", "--requests", "1",
+                                  "--seed", str(seed), *flags])
+        serve_launches = entry.kernel_launches()
+        serve_s = time.perf_counter() - t0
+        print(out.getvalue(), end="", flush=True)
+        if f"restored checkpoint step {WORKLOAD['steps']} " not in out.getvalue():
+            raise AssertionError("serve.main did not print the restored step")
+        if serve_launches["flash_fwd"] != layers:
+            raise AssertionError(f"serving prefill launched the flash kernel "
+                                 f"{serve_launches['flash_fwd']} times for {layers} layers")
+        ref = serve.run_request(live, prompt, config, SERVE_CKPT["new_tokens"])
+        if not torch.equal(results[0]["tokens"], ref["tokens"]):
+            raise AssertionError(f"tokens served {flags} from the checkpoint differ from the "
+                                 "trainer's parameters' tokens")
+        log("workloads", step="serve", int8=bool(flags), **SERVE_CKPT,
+            ttft_ms=results[0]["ttft_ms"], decode_tok_s=results[0]["decode_tok_s"],
+            tokens_equal_live=True, launches=serve_launches, seconds=serve_s)
+        launches = {k: launches[k] + serve_launches[k] for k in launches}
+        del results, ref
+        torch.cuda.empty_cache()
+    del served_ref, int8_ref
     torch.cuda.empty_cache()
-    return {k: train_launches[k] + serve_launches[k] for k in train_launches}
+    return launches
 
 
 def phase_perf(profile: bool) -> tuple:
@@ -1358,6 +1407,28 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
                             window="sharded_")
         del params
         torch.cuda.empty_cache()
+
+        # (c) int8: quantized on the mesh (its max's collectives over one
+        # rank skipped), phase 4's int8 prompt, phase 4's int8 tokens.
+        t0 = time.perf_counter()
+        config, params = serve.build("llama3_8b", seed, "cuda", int8=True, mesh=mesh)
+        prompt = sharding.shard_batch(served["int8_prompt"], mesh).cuda()
+        serve.run_request(params, prompt[:1, :256], config, 2, mesh=mesh)
+        _reset_launches()
+        res = serve.run_request(params, prompt, config, SHARDED_SERVE["new_tokens"], mesh=mesh)
+        int8_launches = entry.kernel_launches()
+        if not torch.equal(res["tokens"].cpu(),
+                           served["int8_tokens"][:, :SHARDED_SERVE["new_tokens"]]):
+            raise AssertionError("sharded int8 serving tokens differ from phase 4's")
+        if int8_launches["flash_fwd"] != config.n_layers:
+            raise AssertionError(f"sharded int8 prefill launched the flash kernel "
+                                 f"{int8_launches['flash_fwd']} times for {config.n_layers} layers")
+        log("sharded", step="serve_int8", **SHARDED_SERVE, ttft_ms=res["ttft_ms"],
+            decode_tok_s=res["decode_tok_s"], tokens_equal_unsharded=True,
+            launches=int8_launches, seconds=time.perf_counter() - t0)
+        serve_launches = {k: serve_launches[k] + int8_launches[k] for k in serve_launches}
+        del params
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     ranks = phase_gang()  # (c) gangs across cards, where the machine has them
@@ -1452,7 +1523,8 @@ def phase_gang() -> int:
     cards, also the longctx, pipeline and Mixtral twins as the scheduler
     would start them on a pod granted four cards: the pod's launcher on a one-pod,
     four-card bind info, one process per card, whose losses must come
-    within GANG_TOL of the same model, seeds and batches on one card.
+    within GANG_TOL of the same model, seeds and batches on one card; then
+    the serving gang (:func:`serve_gang`).
     Returns the ranks of the gang (1, and nothing run, on one card)."""
     import torch
 
@@ -1532,7 +1604,100 @@ def phase_gang() -> int:
                gated_steps=1, mesh={"dp": ranks}, batch_per_card=rg["batch"], image_size=train_resnet.IMAGE_SIZE,
                bn_stats_equal_on_ranks=True,
                images_per_s_one_card=rg["batch"] * ranks / (one[-1]["step_ms"] * 1e-3))
+
+    serve_gang(ranks)
     return ranks
+
+
+# One request line of serve.main (the ranks' lines share one pipe).
+_SERVE_REQUEST = re.compile(
+    r"request (\d+): ttft ([\d.]+) ms, decode ([\d.]+) tok/s, flash launches (\d+), "
+    r"first local ids \[[^]]*\], first of each row \[([\d, ]*)\], peak ([\d.]+) GiB")
+_INT8_DIGEST = re.compile(r"serving int8-quantized linears, local shards sha256 ([0-9a-f]{64})")
+
+
+def tp_block_digests(params, tp: int) -> list:
+    """The ``quantize.shard_digest`` of each tp rank's block of a one-card
+    int8 tree, at tp x fsdp 1: each int8 leaf split over tp along the dim
+    the rule table maps to tp."""
+    from hivedscheduler_tpu_torch.models import quantize, transformer
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    axes = quantize.quantized_axes(transformer.logical_axes(transformer.llama3_8b()))
+
+    def block(leaf, names, r):
+        if isinstance(leaf, dict):
+            return {k: block(v, names[k], r) for k, v in leaf.items()}
+        for d, axis in enumerate(sharding.spec_for(names)):
+            if axis == "tp":
+                leaf = leaf.chunk(tp, dim=d)[r]
+        return leaf
+
+    return [quantize.shard_digest({k: block(params[k], axes[k], r) for k in ("layers", "lm_head")})
+            for r in range(tp)]
+
+
+def serve_gang(ranks: int) -> None:
+    """The serving gang (``SERVE_GANG``) through the pod's launcher at tp
+    4, in bf16 and int8, against the same argv on one card in this
+    process: first tokens, the int8 shards' digests, a flash launch a layer
+    a rank, TTFT, decode rate and peak memory."""
+    import torch
+
+    from hivedscheduler_tpu_torch import serve
+
+    for int8 in (False, True):
+        argv = SERVE_GANG + (["--int8"] if int8 else [])
+        torch.cuda.reset_peak_memory_stats()
+        one = serve.main(argv)  # this process, card 0
+        one_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        want_digests = None
+        if int8:
+            config, params = serve.build("llama3_8b", 0, "cuda", int8=True)
+            want_digests = sorted(tp_block_digests(params, ranks))
+            del params
+            torch.cuda.empty_cache()
+        out = launch_pod("hivedscheduler_tpu_torch.serve", argv, ranks)
+        lines = [m.groups() for m in _SERVE_REQUEST.finditer(out)]
+        if len(lines) != ranks * len(one):
+            raise AssertionError(f"serving gang: {len(lines)} request lines from {ranks} ranks")
+        layers = serve.MODELS["llama3_8b"]().n_layers
+        requests = []
+        for r, res in enumerate(one):
+            mine = [ln for ln in lines if int(ln[0]) == r]
+            want = res["tokens"][:, 0].tolist()
+            firsts = {ln[4] for ln in mine}
+            if len(firsts) != 1:
+                raise AssertionError(f"serving gang request {r}: the tp ranks' tokens differ "
+                                     f"{firsts}")
+            got = [int(t) for t in firsts.pop().split(",")]
+            agree = sum(a == b for a, b in zip(got, want))
+            if agree < 3:
+                raise AssertionError(f"serving gang request {r}: first tokens {got} agree with "
+                                     f"one card's {want} in {agree}/4 rows")
+            if {int(ln[3]) for ln in mine} != {layers}:
+                raise AssertionError(f"serving gang request {r}: flash launches "
+                                     f"{[ln[3] for ln in mine]}, not {layers} a rank")
+            requests.append({
+                "request": r, "first_tokens_agree_rows": agree,
+                "ttft_ms": max(float(ln[1]) for ln in mine),
+                "decode_tok_s": min(float(ln[2]) for ln in mine),
+                "one_card_ttft_ms": res["ttft_ms"], "one_card_decode_tok_s": res["decode_tok_s"]})
+        fields = {}
+        if int8:
+            digests = sorted(_INT8_DIGEST.findall(out))
+            if digests != want_digests:
+                raise AssertionError(f"serving gang: the ranks' int8 digests {digests} are not "
+                                     f"one card's tp blocks' {want_digests}")
+            fields["int8_digests_equal_one_card_blocks"] = True
+        last = requests[-1]
+        log("gang", step="serve_int8" if int8 else "serve", ranks=ranks,
+            mesh=dataclasses.asdict(serve.mesh_layout("llama3_8b", ranks)), argv=argv,
+            requests=requests, flash_launches_per_rank_request=layers,
+            peak_gib_per_rank=max(float(ln[5]) for ln in lines), one_card_peak_gib=one_peak,
+            ttft_speedup=last["one_card_ttft_ms"] / last["ttft_ms"],
+            decode_speedup=last["decode_tok_s"] / last["one_card_decode_tok_s"], **fields)
 
 
 def phase_longctx() -> dict:
@@ -2127,6 +2292,13 @@ def main() -> int:
            for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
                             ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
                             ("library_ms", "library_ms"), ("tflops", "kernel_tflops"))},
+        # A tp 4 serving rank's prefill (the four-card serving gang's shape).
+        "serve_tp4_shape": {"shape": list(SERVE_TP4_SHAPE[:5]), "causal": SERVE_TP4_SHAPE[5],
+                            "max_abs_err": k["serve_tp4"]["o_max_abs_err"],
+                            **{key: k["serve_tp4"][src] for key, src in (
+                                ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                                ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
+                                ("library_ms", "library_ms"), ("tflops", "kernel_tflops"))}},
         # One rank of a tp gang at the training shape (phase 3).
         **{f"{group}_shapes": rank_shapes(kb, group, "fwd") for group in GROUPS},
         "sp_shapes": sp_shapes(kb, "fwd"),

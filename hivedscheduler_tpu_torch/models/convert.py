@@ -15,14 +15,25 @@ import numpy as np
 import torch
 
 from .. import Device, resolve_device
+from ..parallel import sharding
 
 
 def params_from_jax(
-    tree: Any, device: Device = None, dtype: torch.dtype = torch.float32
+    tree: Any, device: Device = None, dtype: torch.dtype = torch.float32,
+    mesh: Any = None, axes: Any = None,
 ) -> Any:
     """Convert a parameter tree of numpy arrays (e.g. ``jax.tree.map(
     np.asarray, params)``) to torch tensors on ``device``. Float leaves
-    become ``dtype``; int8 leaves stay int8."""
+    become ``dtype``; int8 leaves stay int8. With an active ``mesh`` (every
+    rank passing the same tree) the leaves are DTensors placed by the rule
+    table from ``axes``, the tree's logical axes (an int8 tree's are
+    ``quantize.quantized_axes`` of the model's): each rank keeps its own
+    shards."""
+    if sharding.is_active(mesh):
+        from . import transformer
+
+        return transformer.place(transformer._flatten(params_from_jax(tree, device, dtype)),
+                                 axes, mesh)
     device = resolve_device(device)
 
     def convert(node):

@@ -15,7 +15,9 @@ Counterpart of ``hivedscheduler_tpu/models/generate.py``, in eager PyTorch:
 - sampling draws from a ``torch.Generator``, so its stream differs from
   ``jax.random``'s: the two agree in distribution, not token by token;
 - on an active mesh (``parallel/sharding.is_active``) the weights are
-  DTensors (tp shards, gathered over fsdp a layer at a time), the prompt
+  DTensors (tp shards, gathered over fsdp a layer at a time; int8 leaves
+  gathered as int8, and ``wo``'s and ``w_down``'s whole-width scale applied
+  before their tp sum, equal to JAX's value in exact arithmetic), the prompt
   and the cache hold this rank's batch rows and its KV heads, the flash
   prefill runs on that block, and the logits are gathered over tp before
   sampling, so the ranks of a tp group sample from the same logits;

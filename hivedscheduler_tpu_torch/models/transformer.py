@@ -40,6 +40,7 @@ from torch.utils.checkpoint import (
 from .. import Device, resolve_device
 from ..ops.attention import mha  # noqa: F401 (registers torch.ops.hived.flash_fwd)
 from ..parallel import pipeline, sharding
+from . import quantize
 
 Params = Dict[str, Any]
 REMAT_POLICIES = ("full", "dots", "flash", "dots+flash")
@@ -330,21 +331,33 @@ def _block(
     return x + sharding.reduce_from(out, mesh)
 
 
+def _gather_leaf(leaf: Any, names: Tuple[Optional[str], ...], dtype: torch.dtype,
+                 mesh: Any) -> Any:
+    """A leaf's shard cast to ``dtype`` and gathered over fsdp where
+    ``names`` shard it there. An int8 leaf (``models/quantize.py``): ``w``
+    gathered as int8; its scale gathered where its out dim shards over fsdp
+    (``wo``, ``w_down``) and local otherwise."""
+    if isinstance(leaf, dict):
+        axes = quantize.int8_axes(names)
+        return {k: _gather_leaf(v, axes[k], dtype, mesh) for k, v in leaf.items()}
+    return sharding.gather_param(leaf, sharding.fsdp_dim(names), dtype, mesh)
+
+
 def gather_layer(layer: Params, config: Any, mesh: Any, axes: Optional[Params] = None) -> Params:
     """One layer's shards, each cast to the compute dtype and gathered over
-    fsdp (its tp and ep shards stay local): what ``_block`` takes on a
-    mesh. ``axes``: the model's per-layer logical axes (default this
-    module's)."""
+    fsdp (its tp and ep shards stay local; int8 leaves stay int8): what
+    ``_block`` takes on a mesh. ``axes``: the model's per-layer logical
+    axes (default this module's)."""
     axes = logical_axes(config)["layers"] if axes is None else axes
-    return {k: sharding.gather_param(v, sharding.fsdp_dim(axes[k][1:]), config.dtype, mesh)
-            for k, v in layer.items()}
+    return {k: _gather_leaf(v, axes[k][1:], config.dtype, mesh) for k, v in layer.items()}
 
 
-def gather_head(local: Params, config: TransformerConfig, mesh: Any) -> torch.Tensor:
-    """The LM head [D, V/tp] in the compute dtype from this rank's shards."""
+def gather_head(local: Params, config: TransformerConfig, mesh: Any) -> Any:
+    """The LM head [D, V/tp] in the compute dtype from this rank's shards
+    (an int8 leaf when ``lm_head`` is quantized)."""
     if config.tied_embeddings:
         return sharding.gather_param(local["embed"], 1, config.dtype, mesh).T
-    return sharding.gather_param(local["lm_head"], 0, config.dtype, mesh)
+    return _gather_leaf(local["lm_head"], ("embed", "vocab"), config.dtype, mesh)
 
 
 def _sharded_block(

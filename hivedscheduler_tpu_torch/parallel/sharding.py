@@ -17,7 +17,8 @@ local tensors (``DTensor.to_local``):
 - ZeRO-3 over ``fsdp``: :func:`gather_param` casts a shard to the compute
   dtype and all-gathers it over fsdp where the block uses it, one layer at
   a time (inside the layer's checkpoint, so backward gathers it again); its
-  backward reduce-scatters the f32 gradient. ``dp`` replicates and
+  backward reduce-scatters the f32 gradient. Int8 (quantized serving)
+  shards are gathered as int8. ``dp`` replicates and
   :func:`reduce_gradients` all-reduces over it after backward.
 - Megatron tensor parallelism over ``tp``: :func:`copy_to` before a
   column-parallel product (identity forward, all-reduce of the gradient),
@@ -353,7 +354,11 @@ class _ReduceBackward(torch.autograd.Function):
 def gather_param(shard: torch.Tensor, dim: Optional[int], dtype: torch.dtype, mesh: Any) -> torch.Tensor:
     """The whole-over-fsdp parameter in ``dtype`` from this rank's shard;
     ``dim`` is the dim sharded over fsdp (None: not sharded there, only
-    cast). tp shards stay local."""
+    cast). tp shards stay local. An int8 (quantized) shard is gathered as
+    int8 and stays int8: its product casts it after the gather, which moves
+    half a bf16 gather's bytes."""
+    if shard.dtype == torch.int8:
+        dtype = torch.int8
     if dim is None or axes_size("fsdp", mesh) == 1:
         return shard.to(dtype)
     return _Gather.apply(shard, dim, dtype, mesh, "fsdp")
@@ -389,6 +394,16 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _all_reduce(grad, ctx.mesh, ctx.axis), None, None
+
+
+def all_reduce_max(x: torch.Tensor, mesh: Any, axes: Any) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``axes`` (None, a name or a tuple
+    of names, as the rules give them), on every rank; an axis of one rank
+    is skipped. Not differentiable."""
+    for axis in () if axes is None else axes if isinstance(axes, tuple) else (axes,):
+        if axes_size(axis, mesh) > 1:
+            x = _all_reduce(x, mesh, axis, "max")
+    return x
 
 
 # The axes over which a gang's ranks hold different tokens: rows over the

@@ -14,8 +14,12 @@ The job boots from the scheduler's env block (``HIVED_TPU_ENV``). With
 (``models/checkpoint.TrainCheckpointer.restore_params``: the trainer's
 optimizer state is never read), in the compute dtype; ``--layers`` cuts the
 depth as ``train.py`` does, so a depth-cut trainer's checkpoint can be
-served. Each request prints its time to first token (prefill + first
-sample), its decode rate, and how many times the flash kernel launched.
+served. ``--int8`` serves int8-quantized linears (``models/quantize.py``):
+with ``--ckpt`` the linears are restored as the checkpoint's f32 values and
+quantized from those, as the JAX twin quantizes the masters it restores.
+Each request prints its time to first token (prefill + first sample), its
+decode rate, how many times the flash kernel launched, the first new token
+of each of the rank's rows and, on a card, the peak memory.
 
 A gang of more than one process lays itself out as ``serve_llama.py``
 does: tp 4 when the world divides by 4, else 2 when by 2, the rest fsdp;
@@ -25,8 +29,11 @@ The weights are placed by the rule table, each rank serves its rows of
 every request (the ranks of a tp or ep group the same rows, sampling
 alike) and prints its own first row. The Mixtral models serve through the
 same cache machinery, their routed FFN in ``generate``'s ``ffn`` hook
-(``mixtral.decode_ffn``). int8 linears on a mesh are not ported; ``--int8``
-refuses the Mixtral models, whose expert weights it does not quantize.
+(``mixtral.decode_ffn``). With ``--int8`` the gang quantizes the placed
+tree on the mesh (each rank its own shards, the per-channel max completed
+over the axis that shards the in dim) and prints the digest of its int8
+shards; ``--int8`` refuses the Mixtral models, whose expert weights it
+does not quantize.
 """
 
 from __future__ import annotations
@@ -55,17 +62,31 @@ INT8_MOE = ("--int8 quantizes the dense family's linears; the MoE expert weights
             "scope (models/quantize.py)")
 
 
-def _empty(tree: Any, dtype: torch.dtype, device: torch.device, placements: Any = None,
+def _empty(tree: Any, dtype: Any, device: torch.device, placements: Any = None,
            mesh: Any = None) -> Any:
-    """Uninitialised tensors in ``dtype`` on ``device``, shaped like
-    ``tree``'s leaves; DTensors on ``mesh`` where ``placements`` (a tree
-    like ``tree``) are given."""
+    """Uninitialised tensors on ``device``, shaped like ``tree``'s leaves,
+    in ``dtype`` (one dtype, or a tree of them like ``tree``); DTensors on
+    ``mesh`` where ``placements`` (a tree like ``tree``) are given."""
     if isinstance(tree, dict):
-        return {k: _empty(v, dtype, device, None if placements is None else placements[k], mesh)
+        return {k: _empty(v, dtype[k] if isinstance(dtype, dict) else dtype, device,
+                          None if placements is None else placements[k], mesh)
                 for k, v in tree.items()}
     if placements is not None:
         return dtensor_empty(tree.shape, dtype=dtype, device_mesh=mesh, placements=placements)
     return torch.empty(tree.shape, dtype=dtype, device=device)
+
+
+def _restore_dtypes(shapes: transformer.Params, dtype: torch.dtype, int8: bool) -> Any:
+    """The dtype each leaf is restored in: the compute dtype, but f32 (the
+    checkpoint's own values) for the linears that ``int8`` quantizes."""
+    if not int8:
+        return dtype
+    out = {k: dtype for k in shapes}
+    out["layers"] = {k: (torch.float32 if k in quantize.LAYER_LINEAR_KEYS else dtype)
+                     for k in shapes["layers"]}
+    if "lm_head" in shapes:
+        out["lm_head"] = torch.float32
+    return out
 
 
 def build(
@@ -79,9 +100,10 @@ def build(
 ) -> Tuple[Any, transformer.Params]:
     """The model's config (depth cut to ``layers``) and its parameters in
     the compute dtype: restored from the latest step under ``ckpt``, else
-    drawn from ``seed``; int8-quantized linears when ``int8``. On an active
-    ``mesh``, DTensors placed by the rule table (each rank reads or keeps
-    its own shards)."""
+    drawn from ``seed``; int8-quantized linears when ``int8`` (from a
+    checkpoint, quantized from its f32 values). On an active ``mesh``,
+    DTensors placed by the rule table (each rank reads or keeps its own
+    shards, and quantizes them there)."""
     if int8 and model.startswith("mixtral"):
         raise ValueError(INT8_MOE)
     device = resolve_device(device)
@@ -92,16 +114,14 @@ def build(
     if active and sharding.axes_size("pp", mesh) > 1:
         raise NotImplementedError("serving runs unpipelined (pp 1), as the JAX package's "
                                   "generate.py does")
-    if int8 and active:
-        raise NotImplementedError("int8 linears on a mesh are not ported; serve them on one process")
+    axes = module.logical_axes(config)
     if ckpt:
         # Shapes from an init on the meta device: nothing is drawn.
         shapes = module.init(config, torch.Generator(), "meta")
         placements = None
         if active:
-            placements = sharding.tree_shardings(sharding.param_mesh(mesh),
-                                                 module.logical_axes(config))
-        like = _empty(shapes, config.dtype, device, placements,
+            placements = sharding.tree_shardings(sharding.param_mesh(mesh), axes)
+        like = _empty(shapes, _restore_dtypes(shapes, config.dtype, int8), device, placements,
                       sharding.param_mesh(mesh) if active else None)
         params, step = checkpoint.TrainCheckpointer(ckpt).restore_params(like)
         print(f"restored checkpoint step {step} from {ckpt}", flush=True)
@@ -112,7 +132,8 @@ def build(
         else:
             params = module.init(config, gen, device)
     if int8:
-        params = quantize.quantize_params(params)
+        # Rebinding frees the f32 linears once their int8 copies exist.
+        params = quantize.quantize_params(params, axes if active else None)
     return config, params
 
 
@@ -217,6 +238,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
             print(f"batch {args.batch} -> {batch} (multiple of dp*fsdp={per})", flush=True)
         batch_rank = sharding.batch_rank(mesh)
     config, params = build(args.model, args.seed, device, args.int8, args.layers, args.ckpt, mesh)
+    if args.int8:
+        print(f"serving int8-quantized linears, {'local ' if mesh else ''}shards sha256 "
+              f"{quantize.shard_digest(params)}", flush=True)
     ffn = decode_hook(config)
     rng = np.random.default_rng(args.seed + 1)
     # One stream a batch shard: the ranks of a tp group sample alike.
@@ -233,11 +257,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
         )
         results.append(res)
         rate = res["decode_tok_s"]
+        peak = (f", peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+                if device.type == "cuda" else "")
         print(
             f"request {r}: ttft {res['ttft_ms']:.1f} ms, decode "
             f"{'n/a' if rate is None else f'{rate:.1f}'} tok/s, "
             f"flash launches {res['flash_launches']}, first {'local ' if mesh else ''}ids "
-            f"{res['tokens'][0, :4].tolist()}",
+            f"{res['tokens'][0, :4].tolist()}, first of each row "
+            f"{res['tokens'][:, 0].tolist()}{peak}",
             flush=True,
         )
     return results

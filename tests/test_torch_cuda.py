@@ -275,3 +275,32 @@ def test_cuda_small_mixtral_matches_cpu(cuda_device):
     for a, b in zip(*grads):
         assert _rel(b, a) < 1e-4
     assert torch.equal(new[0], new[1])
+
+
+@pytest.mark.cuda
+def test_cuda_int8_on_a_one_rank_nccl_mesh_gives_the_unsharded_tokens(cuda_device):
+    # chip_smoke.py phase 8 (c) at test size: quantized on the mesh (the
+    # max's collectives over one rank skipped), served through the sharded
+    # path; a 256-token prompt reaches the flash kernel.
+    import torch.distributed as dist
+
+    from hivedscheduler_tpu_torch import serve
+    from hivedscheduler_tpu_torch.parallel import mesh as pmesh
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    from ._multiproc import free_port
+
+    config, params = serve.build("tiny", 3, cuda_device, int8=True)
+    prompt = torch.randint(0, config.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    want = serve.run_request(params, prompt, config, 8)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = pmesh.make_mesh(pmesh.MeshConfig(), "cuda")
+        _, sharded = serve.build("tiny", 3, cuda_device, int8=True, mesh=mesh)
+        got = serve.run_request(sharded, sharding.shard_batch(prompt, mesh), config, 8, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert want["flash_launches"] == got["flash_launches"] == config.n_layers
+    assert torch.equal(got["tokens"], want["tokens"])

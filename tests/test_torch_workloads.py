@@ -3,6 +3,7 @@ bootstrap (hivedscheduler_tpu_torch.workloads.common) and the card grant,
 ``train.main`` on a token file, ``serve.main`` on a checkpoint, against the
 JAX package, and both as two-process gloo gangs against one process."""
 
+import dataclasses
 import os
 
 import jax
@@ -13,11 +14,14 @@ import torch
 
 from hivedscheduler_tpu import common as jcommon
 from hivedscheduler_tpu.models import generate as JG
+from hivedscheduler_tpu.models import quantize as JQ
 from hivedscheduler_tpu.models import transformer as JT
 from hivedscheduler_tpu.utils import data as JD
 from hivedscheduler_tpu_torch import serve
 from hivedscheduler_tpu_torch import train as entry
 from hivedscheduler_tpu_torch.models import checkpoint, convert, train, transformer
+from hivedscheduler_tpu_torch.models import generate as TG
+from hivedscheduler_tpu_torch.models import quantize as TQ
 from hivedscheduler_tpu_torch.parallel import mesh
 from hivedscheduler_tpu_torch.workloads import common
 
@@ -130,11 +134,13 @@ def test_two_process_train_main_matches_one_process_on_the_same_batches(token_fi
         np.testing.assert_allclose(o["losses"], want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("source", ["seed", "ckpt"])
+@pytest.mark.parametrize("source", ["seed", "ckpt", "seed-int8", "ckpt-int8"])
 def test_two_process_serve_main_at_tp2_gives_the_one_process_tokens(source, tmp_path, capsys):
     argv = ["--model", "tiny", "--temperature", "0", "--requests", "2", "--batch", "2",
             "--prompt-len", "32", "--new-tokens", "6", "--seed", "4"]
-    if source == "ckpt":  # written by one process, read as each rank's tp shards
+    if source.endswith("int8"):  # each rank quantizes its own shards
+        argv += ["--int8"]
+    if source.startswith("ckpt"):  # written by one process, read as each rank's tp shards
         _, params = entry.build("tiny", 7, "cpu")
         checkpoint.TrainCheckpointer(str(tmp_path)).save(1, params, train.make_optimizer(params))
         argv += ["--ckpt", str(tmp_path)]
@@ -225,3 +231,53 @@ def test_serve_build_restores_a_depth_cut_checkpoint(tmp_path, capsys):
     for a, b in zip(transformer.leaves(params), transformer.leaves(served), strict=True):
         assert b.dtype == config.dtype and not b.requires_grad
         assert torch.equal(a.detach().to(config.dtype), b)
+
+
+# A served token's logit under JAX's bf16 forward on the same int8 tree vs
+# that position's best. Greedy tokens are not compared with JAX's generate:
+# XLA and torch round the bf16 intermediates in different places, and even
+# JAX's own decode steps and its one-pass forward pick different tokens at
+# near-ties (the port's tokens equal JAX generate's in 6 of 10 seeds of this
+# config, on identical trees). The logits lie below 8, where a bf16 ulp is
+# at most 2^-5: two ulps; a random token lies some 2.5 below the best.
+BF16_LOGIT_GAP = 2.0**-4
+
+
+def test_serve_int8_from_a_checkpoint_quantizes_the_f32_masters_as_jax(
+        tmp_path, monkeypatch, capsys):
+    # In a bf16 config the masters' bf16 rounding changes the int8 values:
+    # the linears are restored in f32 and quantized from those, as the JAX
+    # serve job quantizes the f32 tree it restores.
+    monkeypatch.setitem(serve.MODELS, "tiny",
+                        lambda: dataclasses.replace(transformer.tiny(), dtype=torch.bfloat16))
+    jcfg = dataclasses.replace(JT.tiny(), dtype=jnp.bfloat16)
+    masters = jax.tree.map(np.asarray, JT.init(jcfg, jax.random.PRNGKey(5)))
+    params = convert.params_from_jax(masters, device="cpu")
+    checkpoint.TrainCheckpointer(str(tmp_path)).save(3, params, train.make_optimizer(params))
+    config, served = serve.build("tiny", 0, "cpu", int8=True, ckpt=str(tmp_path))
+    assert config.dtype == torch.bfloat16
+    jq = jax.tree.map(np.asarray, JQ.quantize_params(masters))
+    for name in [f"layers/{k}" for k in TQ.LAYER_LINEAR_KEYS] + ["lm_head"]:
+        got, want = served, jq
+        for key in name.split("/"):
+            got, want = got[key], want[key]
+        for part in ("w", "scale"):
+            assert got[part].dtype == (torch.int8 if part == "w" else torch.float32)
+            np.testing.assert_array_equal(got[part].numpy(), want[part], err_msg=name)
+    assert served["embed"].dtype == served["layers"]["ln1"].dtype == torch.bfloat16
+
+    b, t, n = 2, 16, 5
+    prompt = np.random.default_rng(6).integers(0, jcfg.vocab_size, (b, t))
+    tokens = serve.run_request(served, torch.from_numpy(prompt), config, n)["tokens"]
+    # The same machinery on JAX's int8 tree gives the same tokens, bit for bit.
+    ref = TG.generate(convert.params_from_jax(jq, device="cpu"), torch.from_numpy(prompt),
+                      config, n)
+    np.testing.assert_array_equal(tokens.numpy(), ref[:, t:].numpy())
+    # JAX's bf16 forward on its int8 tree, teacher-forced over the served
+    # tokens: each one is JAX's best at its position, up to bf16 near-ties.
+    seq = jnp.asarray(np.concatenate([prompt, tokens.numpy()[:, :-1]], axis=1), jnp.int32)
+    logits, _ = JG._forward_cached(JQ.quantize_params(masters), seq,
+                                   JG.init_cache(jcfg, b, t + n), jcfg)
+    logits = np.asarray(logits)[:, t - 1:]
+    picked = np.take_along_axis(logits, tokens.numpy()[..., None], -1)[..., 0]
+    assert (logits.max(-1) - picked).max() <= BF16_LOGIT_GAP
