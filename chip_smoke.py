@@ -41,16 +41,24 @@ neither the kernels line nor the last line, since no main path ran):
              causal) is held and timed beside SDPA.
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
-             tokens through the serving entry point. Launch counts are set
+             tokens through the serving entry point, after a warm-up request
+             of the same shape (it captures the decode step's CUDA graph; no
+             timed request may capture). Launch counts are set
              to 0 just before and read just after; every prefill layer must
              launch the flash kernel. Against the uncached ``forward()``
              over prompt + generated tokens, the first new token must be
              its argmax in >= 3 of 4 rows, and every generated token's logit
              must be within MAX_LOGIT_GAP of its position's best. Then the
              int8-quantized weights serve one request of the same traffic
-             after a warm-up (its TTFT and decode rate beside bf16's); every
-             prefill layer must launch the flash kernel; its tokens go to
-             phase 8.
+             after a warm-up of that shape (its TTFT and decode rate beside
+             bf16's); every prefill layer must launch the flash kernel; its
+             tokens go to phase 8. The bf16 and the int8 request's prompts
+             are then served once more through the eager decode loop (the
+             captured step's plain version), whose tokens must equal the
+             graph's; a ``decode_graph`` line gives the capture's ms, the
+             replays, ms a step of both against the step's bound
+             (``decode_bound``: weights and the whole cache read once) and
+             both tok/s. Phases 6, 7 and 11 (b) do the same.
 5. train   - after serving's weights are freed. (a) a tiny f32 model (4/2
              heads, head_dim 32, S 256, remat "flash") takes 2 AdamW steps
              on the card and 2 on the CPU from the same weights: the losses,
@@ -83,7 +91,8 @@ neither the kernels line nor the last line, since no main path ran):
              whose greedy tokens must equal ``serve.run_request``'s on the
              trainer's parameters cast to bf16, and ``serve.main --ckpt
              --int8``, whose tokens must equal ``serve.run_request``'s on
-             ``quantize.quantize_params`` of the trainer's f32 masters; every
+             ``quantize.quantize_params`` of the trainer's f32 masters (after
+             a warm-up request on them), and so must the eager loop's; every
              prefill layer must launch the flash kernel.
 7. perf    - the perf harness (``models/perf.main``) with its decode,
              long-context and zoo stages, its artifact in a temporary file:
@@ -95,7 +104,9 @@ neither the kernels line nor the last line, since no main path ran):
              its BERT steps launch the forward twice a layer and each
              backward once, a step; its ResNet and decode launch none (the
              128-token prefill is shorter than the flash dispatch's 256, in
-             both packages, so it runs the plain attention).
+             both packages, so it runs the plain attention). The harness's
+             model then serves the zoo's decode shape (8 x 128 x 32)
+             through ``serve.run_request``, graph against eager.
 8. sharded - a one-rank NCCL group (TCP store on 127.0.0.1) and the 6-axis
              mesh over it; NCCL's all-gather, reduce-scatter and all-reduce
              once each (the model skips collectives over one rank, so the
@@ -173,7 +184,8 @@ neither the kernels line nor the last line, since no main path ran):
              14336, 8 experts, top-2, capacity 1.25, theta 1e6), depth cut
              to 16 layers (46.96 GB in bf16; 32 would not fit one card):
              phase 4's traffic (batch 4 x prompt 2048 x 32 greedy tokens,
-             2 requests after a warm-up) through ``serve.run_request``;
+             2 requests after a warm-up of that shape) through
+             ``serve.run_request``, the routed FFN inside the captured step;
              every prefill layer launches the forward kernel, the tokens are
              in range, and the prefill's last logits lie within
              MAX_LOGIT_GAP of an uncached ``forward()`` over the same prompt
@@ -841,8 +853,11 @@ def phase_serve(seed: int, profile: bool, model: str = "llama3_8b",
             serve.synthetic_tokens(rng, batch, length, config.vocab_size)
         ).to(device)
 
-    # Warm-up: cuBLAS handles, the kernel library's first load.
-    serve.run_request(params, prompt(1, 256), config, 2)
+    # Warm-up at the timed shape: cuBLAS handles, the kernel library's first
+    # load, the decode step's capture.
+    _reset_graph_counts()
+    warm = serve.run_request(params, prompt(SERVE["batch"], SERVE["prompt"]), config,
+                             SERVE["new_tokens"])
 
     prompts = [prompt(SERVE["batch"], SERVE["prompt"]) for _ in range(SERVE["requests"])]
     torch.cuda.reset_peak_memory_stats()
@@ -850,6 +865,10 @@ def phase_serve(seed: int, profile: bool, model: str = "llama3_8b",
     results = [serve.run_request(params, p, config, SERVE["new_tokens"]) for p in prompts]
     launches = A.flash_attention.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if any(r["captures"] for r in results):
+        raise AssertionError("a timed request captured a decode graph")
+    check_decode_graph("serve", params, config, prompts[-1], SERVE["new_tokens"], results[-1],
+                       warm["capture_ms"])
     if launches != config.n_layers * SERVE["requests"]:
         raise AssertionError(
             f"flash kernel launched {launches} times for {SERVE['requests']} "
@@ -901,20 +920,25 @@ def phase_serve(seed: int, profile: bool, model: str = "llama3_8b",
     qparams = quantize.quantize_params(params)
     del params
     torch.cuda.empty_cache()
-    serve.run_request(qparams, prompt(1, 256), config, 2)  # warm-up, as for bf16
+    _reset_graph_counts()
+    warm = serve.run_request(qparams, prompt(INT8["batch"], INT8["prompt"]), config,
+                             INT8["new_tokens"])  # warm-up at the timed shape, as for bf16
     int8_prompt = prompt(INT8["batch"], INT8["prompt"])
     torch.cuda.reset_peak_memory_stats()
     A.flash_attention.launches = 0
     res = serve.run_request(qparams, int8_prompt, config, INT8["new_tokens"])
     int8_launches = A.flash_attention.launches
+    int8_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if int8_launches != config.n_layers:
         raise AssertionError(f"int8 request launched the flash kernel {int8_launches} times")
     if not ((res["tokens"] >= 0) & (res["tokens"] < config.vocab_size)).all():
         raise AssertionError("int8 request: token ids out of range")
     log("serve", step="int8", **INT8, ttft_ms=res["ttft_ms"],
         decode_tok_s=res["decode_tok_s"], flash_launches=int8_launches,
-        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        peak_memory_gib=int8_peak_gib, captures=res["captures"],
         bf16_ttft_ms=results[-1]["ttft_ms"], bf16_decode_tok_s=results[-1]["decode_tok_s"])
+    check_decode_graph("serve_int8", qparams, config, int8_prompt, INT8["new_tokens"], res,
+                       warm["capture_ms"])
     return {"launches": launches + int8_launches, "results": results,
             "prompt0": prompts[0].cpu(), "tokens0": results[0]["tokens"].cpu(),
             "int8_prompt": int8_prompt.cpu(), "int8_tokens": res["tokens"].cpu()}
@@ -1038,6 +1062,70 @@ def _reset_launches() -> None:
     from hivedscheduler_tpu_torch.ops import attention as A
 
     A.flash_attention.launches = A.flash_bwd_dkdv.launches = A.flash_bwd_dq.launches = 0
+
+
+def _reset_graph_counts() -> None:
+    from hivedscheduler_tpu_torch.models import generate
+
+    generate.Decoder.captures = generate.Decoder.replays = 0
+    generate.Decoder.capture_s = 0.0
+
+
+def decode_bound(params, config, batch: int, s_max: int) -> dict:
+    """Least time of one decode step on this card: the larger of its bytes
+    over the memory rate (every weight read once, the embedding's B rows
+    only, and the K and V of all ``s_max`` cache slots, which the step
+    attends over) and its products over the bf16 peak (2 operations a
+    weight a row). ``upcast_bytes``: what the eager einsum's f32 copy of K
+    writes and reads on top, not counted in the bound."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import perf, transformer
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in transformer.leaves(tree))
+
+    embed = params["embed"]
+    weights = nbytes(params) - nbytes(embed)
+    weights += (nbytes(embed) if config.tied_embeddings else 0) + nbytes(embed[:batch])
+    elems = config.n_layers * batch * s_max * config.n_kv_heads * config.head_dim
+    cache = 2 * elems * (torch.finfo(config.dtype).bits // 8)
+    products = 2 * batch * (perf.n_params(params) - embed.numel()
+                            + (embed.numel() if config.tied_embeddings else 0))
+    t_bytes = (weights + cache) / perf.H100_BYTES_PER_S
+    t_ops = products / perf.H100_BF16_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "weight_bytes": weights, "cache_bytes": cache, "upcast_bytes": 8 * elems}
+
+
+def check_decode_graph(phase: str, params, config, prompt, new_tokens: int, graph: dict,
+                       capture_ms: float, ffn=None) -> None:
+    """One request through the eager plain loop (``plain=True``) at the
+    graph request's shape and prompt: its tokens must equal the graph's.
+    Logs the ``decode_graph`` line: captures, their time (the warm-up's),
+    replays since ``_reset_graph_counts``, ms a step of both against the
+    step's bound, tok/s of both."""
+    import torch
+
+    from hivedscheduler_tpu_torch import serve
+    from hivedscheduler_tpu_torch.models import generate
+
+    replays, captures = generate.Decoder.replays, generate.Decoder.captures
+    plain = serve.run_request(params, prompt, config, new_tokens, ffn=ffn, plain=True)
+    if not torch.equal(plain["tokens"], graph["tokens"]):
+        rows = (plain["tokens"] != graph["tokens"]).any(1).nonzero().flatten().tolist()
+        raise AssertionError(f"{phase}: the captured decode's tokens differ from the eager "
+                             f"loop's in rows {rows}")
+    b, t = prompt.shape
+    bound = decode_bound(params, config, b, t + new_tokens)
+    step_ms = 1e3 * b / graph["decode_tok_s"]
+    log("decode_graph", path=phase, batch=b, prompt=t, new_tokens=new_tokens,
+        captures=captures, capture_ms=capture_ms, replays=replays,
+        step_ms=step_ms, eager_step_ms=1e3 * b / plain["decode_tok_s"], **bound,
+        bound_share=bound["bound_ms"] / step_ms,
+        graph_tok_s=graph["decode_tok_s"], eager_tok_s=plain["decode_tok_s"],
+        tokens_equal_eager=True)
 
 
 def _dir_bytes(path: str) -> int:
@@ -1202,15 +1290,19 @@ def workloads_job(seed: int, workdir: str) -> dict:
         if serve_launches["flash_fwd"] != layers:
             raise AssertionError(f"serving prefill launched the flash kernel "
                                  f"{serve_launches['flash_fwd']} times for {layers} layers")
+        _reset_graph_counts()
+        warm = serve.run_request(live, prompt, config, SERVE_CKPT["new_tokens"])  # capture
         ref = serve.run_request(live, prompt, config, SERVE_CKPT["new_tokens"])
         if not torch.equal(results[0]["tokens"], ref["tokens"]):
             raise AssertionError(f"tokens served {flags} from the checkpoint differ from the "
                                  "trainer's parameters' tokens")
+        check_decode_graph("workloads_int8" if flags else "workloads", live, config, prompt,
+                           SERVE_CKPT["new_tokens"], ref, warm["capture_ms"])
         log("workloads", step="serve", int8=bool(flags), **SERVE_CKPT,
             ttft_ms=results[0]["ttft_ms"], decode_tok_s=results[0]["decode_tok_s"],
             tokens_equal_live=True, launches=serve_launches, seconds=serve_s)
         launches = {k: launches[k] + serve_launches[k] for k in launches}
-        del results, ref
+        del results, ref, warm
         torch.cuda.empty_cache()
     del served_ref, int8_ref
     torch.cuda.empty_cache()
@@ -1228,6 +1320,7 @@ def phase_perf(profile: bool) -> tuple:
     import numpy as np
     import torch
 
+    from hivedscheduler_tpu_torch import serve
     from hivedscheduler_tpu_torch.models import bert, perf, train, transformer
     from hivedscheduler_tpu_torch.ops import attention as A
 
@@ -1276,6 +1369,18 @@ def phase_perf(profile: bool) -> tuple:
         log("perf", step="zoo", **zoo)
         log("perf", seconds=seconds, launches=launches, zoo_launches=zoo_launches,
             artifact_keys=sorted(artifact))
+        # The harness's decode (its model and weights, the zoo's batch 8
+        # after 128 tokens, 32 new) through the serving entry point: a
+        # warm-up that captures, a timed request, the eager loop's tokens.
+        config = perf.bench_config(True)[0]
+        params = perf._flagship_params(config, torch.device("cuda"))
+        prompt = torch.from_numpy(np.random.default_rng(6).integers(
+            0, config.vocab_size, size=(8, 128))).cuda()
+        _reset_graph_counts()
+        warm = serve.run_request(params, prompt, config, 32)
+        res = serve.run_request(params, prompt, config, 32)
+        check_decode_graph("perf", params, config, prompt, 32, res, warm["capture_ms"])
+        del params
         if profile:
             # The harness's training step again (its model, seeds and
             # shape), two warm-up steps, then one under the profiler.
@@ -1612,7 +1717,8 @@ def phase_gang() -> int:
 # One request line of serve.main (the ranks' lines share one pipe).
 _SERVE_REQUEST = re.compile(
     r"request (\d+): ttft ([\d.]+) ms, decode ([\d.]+) tok/s, flash launches (\d+), "
-    r"first local ids \[[^]]*\], first of each row \[([\d, ]*)\], peak ([\d.]+) GiB")
+    r"decode graphs captured \d+ \([\d.]+ ms\), first local ids \[[^]]*\], "
+    r"first of each row \[([\d, ]*)\], peak ([\d.]+) GiB")
 _INT8_DIGEST = re.compile(r"serving int8-quantized linears, local shards sha256 ([0-9a-f]{64})")
 
 
@@ -1906,13 +2012,19 @@ def phase_mixtral(seed: int, profile: bool) -> dict:
         return torch.from_numpy(serve.synthetic_tokens(rng, batch, length,
                                                        config.vocab_size)).cuda()
 
-    serve.run_request(params, prompt(1, 256), config, 2, ffn=ffn)  # warm-up
+    _reset_graph_counts()
+    warm = serve.run_request(params, prompt(sv["batch"], sv["prompt"]), config,
+                             sv["new_tokens"], ffn=ffn)  # warm-up at the timed shape
     prompts = [prompt(sv["batch"], sv["prompt"]) for _ in range(sv["requests"])]
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     results = [serve.run_request(params, p, config, sv["new_tokens"], ffn=ffn) for p in prompts]
     serve_launches = A.kernel_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if any(r["captures"] for r in results):
+        raise AssertionError("a timed Mixtral request captured a decode graph")
+    check_decode_graph("mixtral", params, config, prompts[-1], sv["new_tokens"], results[-1],
+                       warm["capture_ms"], ffn=ffn)
     if serve_launches["flash_fwd"] != config.n_layers * sv["requests"]:
         raise AssertionError(f"Mixtral prefill launched the flash kernel "
                              f"{serve_launches['flash_fwd']} times for {sv['requests']} "
@@ -2152,10 +2264,12 @@ def profile_request(params, prompt, config, unprofiled: dict, new_tokens: int = 
     with profile(activities=activities) as prefill:
         next(stream)
         torch.cuda.synchronize()
+    replays = generate.Decoder.replays
     with profile(activities=activities) as decode:
         for _ in stream:
             pass
         torch.cuda.synchronize()
+    replays = {"prefill": 0, "decode": generate.Decoder.replays - replays}
     walls = {
         "prefill": unprofiled["ttft_ms"],
         "decode": 1e3 * prompt.shape[0] * (new_tokens - 1) / unprofiled["decode_tok_s"],
@@ -2165,7 +2279,7 @@ def profile_request(params, prompt, config, unprofiled: dict, new_tokens: int = 
         busy_ms = sum(r[0] for r in rows)
         log("profile", window=window + name, wall_ms_unprofiled=walls[name],
             device_busy_ms=busy_ms, idle_share=1 - busy_ms / walls[name],
-            kernel_launches=sum(r[2] for r in rows),
+            kernel_launches=sum(r[2] for r in rows), graph_replays=replays[name],
             top=[{"kernel": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:10]],
             port_kernels=port_kernel_rows(rows))
 

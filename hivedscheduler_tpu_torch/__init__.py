@@ -9,7 +9,8 @@ a copy of. Kernels the JAX package wrote in Pallas are written by hand for
 ``sm_90a`` under ``ops/csrc/`` and built on first use.
 
 Ported so far: single-device Llama serving (flash prefill through the
-hand-written flash-attention forward, KV-cache decode, int8 linears;
+hand-written flash-attention forward, KV-cache decode from a CUDA graph
+captured once a shape, int8 linears;
 ``python -m hivedscheduler_tpu_torch.serve``), the single-device training
 step (AdamW on f32 master weights, bf16 compute, remat, the hand-written
 flash-attention backward; ``python -m hivedscheduler_tpu_torch.train``),

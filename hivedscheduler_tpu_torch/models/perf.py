@@ -302,7 +302,9 @@ def bench_decode_sweep(on_gpu: bool) -> List[dict]:
     generation lengths and reports the marginal cost a token,
     ``(t_long - t_short) / (n_long - n_short)``: the prefill and set-up are
     the same in both and cancel. Each length is timed twice after a warm-up
-    and the faster run kept."""
+    and the faster run kept. On the card the decode steps replay a captured
+    graph; each length's warm-up captures it, and ``capture_ms`` is the
+    row's capture time, outside the timed runs."""
     config, _, _ = bench_config(on_gpu)
     device = _device(on_gpu)
     params = _flagship_params(config, device)
@@ -315,6 +317,7 @@ def bench_decode_sweep(on_gpu: bool) -> List[dict]:
             prompt = torch.from_numpy(
                 rng.integers(0, config.vocab_size, size=(batch, prompt_len))).to(device)
             best = {}
+            capture_s = generate.Decoder.capture_s
             for n_new in (n_short, n_long):
                 host_sync(generate.generate_greedy_scan(p, prompt, config, n_new))
                 for _ in range(2):
@@ -330,6 +333,7 @@ def bench_decode_sweep(on_gpu: bool) -> List[dict]:
                 "batch": batch,
                 "decode_ms_per_token": round(marginal * 1e3, 3),
                 "tokens_per_sec": round(batch / marginal, 1),
+                "capture_ms": round((generate.Decoder.capture_s - capture_s) * 1e3, 1),
                 **(extra or {}),
             }
         except Exception as exc:  # optional stage: one error row
@@ -452,10 +456,15 @@ def bench_zoo(on_gpu: bool) -> dict:
         0, gconfig.vocab_size, size=(gbatch, prompt_len))).to(device)
     before = att.kernel_launches()
     with torch.inference_mode():
-        cache = generate.init_cache(gconfig, gbatch, prompt_len + new_tokens + 1, device=device)
+        # On the card decode_step replays the captured step of the owner
+        # that made its cache.
+        cache = generate.decoder(gparams, gconfig).init_cache(gbatch,
+                                                              prompt_len + new_tokens + 1)
         logits, cache = generate.prefill(gparams, prompt, cache, gconfig)
         token = logits.argmax(-1)
-        # Warm decode_step, then time the steady-state loop on the same token.
+        # Warm decode_step (its capture), then time the steady-state loop on
+        # the same token.
+        capture_s = generate.Decoder.capture_s
         host_sync(generate.decode_step(gparams, token, cache, gconfig)[0])
         t0 = time.perf_counter()
         for _ in range(new_tokens):
@@ -465,8 +474,11 @@ def bench_zoo(on_gpu: bool) -> dict:
     out["decode_step_ms"] = round(gdt * 1e3, 2)
     out["decode_tokens_per_sec"] = round(gbatch / gdt, 1)
 
-    # Prefill and every step in one call, as the JAX package's one program.
+    # Prefill and every step in one call, as the JAX package's one program
+    # (its warm-up captures the step at this shape).
     host_sync(generate.generate_greedy_scan(gparams, prompt, gconfig, new_tokens))
+    if on_gpu:
+        out["decode_capture_ms"] = round((generate.Decoder.capture_s - capture_s) * 1e3, 2)
     t0 = time.perf_counter()
     host_sync(generate.generate_greedy_scan(gparams, prompt, gconfig, new_tokens))
     sdt = (time.perf_counter() - t0) / new_tokens

@@ -18,8 +18,11 @@ served. ``--int8`` serves int8-quantized linears (``models/quantize.py``):
 with ``--ckpt`` the linears are restored as the checkpoint's f32 values and
 quantized from those, as the JAX twin quantizes the masters it restores.
 Each request prints its time to first token (prefill + first sample), its
-decode rate, how many times the flash kernel launched, the first new token
-of each of the rank's rows and, on a card, the peak memory.
+decode rate, how many times the flash kernel launched, how many decode
+graphs it captured and in what time (on one card the decode steps replay
+``models/generate.py``'s captured step; the first request of a shape
+captures it), the first new token of each of the rank's rows and, on a
+card, the peak memory.
 
 A gang of more than one process lays itself out as ``serve_llama.py``
 does: tp 4 when the world divides by 4, else 2 when by 2, the rest fsdp;
@@ -152,19 +155,24 @@ def run_request(
     generator: Optional[torch.Generator] = None,
     mesh: Any = None,
     ffn: Optional[Callable] = None,
+    plain: bool = False,
 ) -> Dict[str, object]:
     """Generate ``new_tokens`` after ``prompt`` and time it: TTFT is the
     prefill plus the first sample, the decode rate counts the tokens after
     the first over the time after it. Host clock around device syncs. On an
     active ``mesh``, ``prompt`` is this rank's rows. ``ffn``: the MoE hook
-    (:func:`decode_hook`)."""
+    (:func:`decode_hook`). On a card with no active mesh the decode steps
+    replay ``generate``'s captured graph (``plain``: the eager loop); a
+    request whose shape is new captures it, and the decode time includes
+    that capture, also given apart (``capture_ms``, ``captures``)."""
     device = prompt.device
     launches0 = attention.flash_attention.launches
+    captures0, capture_s0 = generate.Decoder.captures, generate.Decoder.capture_s
     _sync(device)
     t0 = time.perf_counter()
     stream = generate.generate_stream(
         params, prompt, config, new_tokens, temperature, generator, top_p=top_p, mesh=mesh,
-        ffn=ffn,
+        ffn=ffn, plain=plain,
     )
     tokens = [next(stream)]
     _sync(device)
@@ -179,6 +187,8 @@ def run_request(
         "ttft_ms": (t1 - t0) * 1e3,
         "decode_tok_s": b * (new_tokens - 1) / decode_s if new_tokens > 1 else None,
         "flash_launches": attention.flash_attention.launches - launches0,
+        "captures": generate.Decoder.captures - captures0,
+        "capture_ms": (generate.Decoder.capture_s - capture_s0) * 1e3,
     }
 
 
@@ -262,7 +272,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
         print(
             f"request {r}: ttft {res['ttft_ms']:.1f} ms, decode "
             f"{'n/a' if rate is None else f'{rate:.1f}'} tok/s, "
-            f"flash launches {res['flash_launches']}, first {'local ' if mesh else ''}ids "
+            f"flash launches {res['flash_launches']}, decode graphs captured "
+            f"{res['captures']} ({res['capture_ms']:.1f} ms), "
+            f"first {'local ' if mesh else ''}ids "
             f"{res['tokens'][0, :4].tolist()}, first of each row "
             f"{res['tokens'][:, 0].tolist()}{peak}",
             flush=True,

@@ -304,3 +304,114 @@ def test_cuda_int8_on_a_one_rank_nccl_mesh_gives_the_unsharded_tokens(cuda_devic
         dist.destroy_process_group()
     assert want["flash_launches"] == got["flash_launches"] == config.n_layers
     assert torch.equal(got["tokens"], want["tokens"])
+
+
+def _decode_tree(device, kind, vocab=512):
+    """(config, parameters on ``device``, ffn) of a small model for the
+    captured decode step: the dense tiny model in f32, its int8 tree, or a
+    small Mixtral."""
+    from hivedscheduler_tpu_torch.models import mixtral, quantize, transformer
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    if kind == "mixtral":
+        config = mixtral.MixtralConfig(vocab_size=vocab, d_model=128, n_layers=2, n_heads=4,
+                                       n_kv_heads=2, d_ff=256, n_experts=4, max_seq_len=256,
+                                       dtype=torch.float32)
+        return config, mixtral.init(config, gen, device), mixtral.decode_ffn(config)
+    config = transformer.tiny(vocab)
+    params = transformer.init(config, gen, device)
+    return config, (quantize.quantize_params(params) if kind == "int8" else params), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,sampled", [("dense", False), ("dense", True), ("int8", False),
+                                          ("int8", True), ("mixtral", False),
+                                          ("mixtral", True)])
+def test_cuda_captured_decode_equals_the_eager_loop(cuda_device, kind, sampled):
+    # The graph's tokens against the eager loop's (its plain version), from
+    # one generator state when sampled; one capture for the request.
+    from hivedscheduler_tpu_torch.models import generate
+
+    config, params, ffn = _decode_tree(cuda_device, kind)
+    prompt = torch.randint(0, config.vocab_size, (4, 256),
+                           generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    knobs = dict(temperature=0.8, top_p=0.95) if sampled else {}
+
+    def run(plain):
+        gen = torch.Generator(device=cuda_device).manual_seed(3) if sampled else None
+        return generate.generate(params, prompt, config, 12, generator=gen, ffn=ffn,
+                                 plain=plain, **knobs)
+
+    captures = generate.Decoder.captures
+    graph, eager = run(False), run(True)
+    assert generate.Decoder.captures == captures + 1
+    assert torch.equal(graph, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_a_second_request_captures_nothing_and_reads_nothing_back(cuda_device):
+    from hivedscheduler_tpu_torch.models import generate
+
+    config, params, _ = _decode_tree(cuda_device, "dense")
+    prompts = [torch.randint(0, config.vocab_size, (2, 64), generator=torch.Generator()
+                             .manual_seed(s)).to(cuda_device) for s in (4, 5)]
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    generate.generate_scan(params, prompts[0], config, 8, gen, temperature=0.8, top_p=0.95)
+    captures, replays = generate.Decoder.captures, generate.Decoder.replays
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any host read of a device value raises
+    try:
+        out = generate.generate_scan(params, prompts[1], config, 8, gen, temperature=0.8,
+                                     top_p=0.95)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert generate.Decoder.captures == captures
+    assert generate.Decoder.replays == replays + 7
+    assert out.shape == (2, 72) and torch.equal(out[:, :64], prompts[1])
+
+
+@pytest.mark.cuda
+def test_cuda_yielded_tokens_are_not_overwritten(cuda_device):
+    from hivedscheduler_tpu_torch.models import generate
+
+    config, params, _ = _decode_tree(cuda_device, "dense")
+    prompt = torch.randint(0, config.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(7)).to(cuda_device)
+    kept = list(generate.generate_stream(params, prompt, config, 8))
+    copies = [t.clone() for t in kept]
+    list(generate.generate_stream(params, prompt.flip(1), config, 8))
+    assert all(torch.equal(a, b) for a, b in zip(kept, copies))
+    assert torch.equal(torch.stack(kept, 1),
+                       generate.generate(params, prompt, config, 8, plain=True)[:, 64:])
+
+
+@pytest.mark.cuda
+def test_cuda_dropping_the_weights_frees_the_owner(cuda_device):
+    # The owner holds the weights weakly and goes with them: its caches,
+    # buffers and graphs are freed, and so are the weights.
+    import gc
+    import weakref
+
+    from hivedscheduler_tpu_torch.models import generate, transformer
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    config, params, _ = _decode_tree(cuda_device, "dense", vocab=2**20)
+    weight_bytes = sum(t.numel() * t.element_size() for t in transformer.leaves(params))
+    prompt = torch.randint(0, config.vocab_size, (8, 256),
+                           generator=torch.Generator().manual_seed(8)).to(cuda_device)
+    generate.generate(params, prompt, config, 16)
+    owner = weakref.ref(generate.decoder(params, config))
+    cache = owner()._slots[(8, 272)].cache
+    cache_bytes = 2 * cache.k.numel() * cache.k.element_size()
+    del cache
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = held - torch.cuda.memory_allocated()
+    assert owner() is None
+    assert freed >= weight_bytes + cache_bytes
+    # What stays: cuBLAS workspaces of the capture's streams, kept by torch.
+    assert torch.cuda.memory_allocated() - base < weight_bytes / 2
