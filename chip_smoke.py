@@ -37,8 +37,9 @@ neither the kernels line nor the last line, since no main path ran):
              of the pipeline twin's stage on four cards (B2 S4096 H16/Hkv4,
              causal) are held and timed with all three kernels too, and so
              is Mixtral's training batch (B4 S4096 H32/Hkv8 D128, causal),
-             and a tp 4 serving rank's prefill (B4 S2048 H8/Hkv2 D128,
-             causal) is held and timed beside SDPA.
+             a tp 4 serving rank's prefill (B4 S2048 H8/Hkv2 D128,
+             causal) and a Mixtral fsdp 2 x ep 2 serving rank's (B2 S2048
+             H32/Hkv8 D128, causal) are held and timed beside SDPA.
 4. serve   - full-width, 32-layer Llama-3-8B in bf16 with random weights
              from --seed: requests of batch 4 x prompt 2048 x 32 greedy new
              tokens through the serving entry point, after a warm-up request
@@ -110,19 +111,27 @@ neither the kernels line nor the last line, since no main path ran):
 8. sharded - a one-rank NCCL group (TCP store on 127.0.0.1) and the 6-axis
              mesh over it; NCCL's all-gather, reduce-scatter and all-reduce
              once each (the model skips collectives over one rank, so the
-             steps below communicate nothing); phase 5's model, seed and
+             steps below communicate nothing), then the four of them
+             (all-reduce by sum and by max) captured in one CUDA graph by
+             the decode step's capture (``generate._capture``) and
+             replayed on fresh inputs, each output equal to its input: the
+             one capture of NCCL a one-card run can show; phase 5's model, seed and
              batch through the sharded step (``init_sharded``,
              ``make_train_step``, ``shard_batch``), 2 warm-up steps whose
              losses and every leaf's bytes after them must equal phase 5's
              bit for bit, then 4 timed steps, each launching every kernel
              once a layer; its mean step ms is printed beside phase 5's.
-             Then, after a short warm-up request, phase 4's first prompt
-             through the sharded serving path at 32 layers, whose 8 greedy
-             tokens must equal phase 4's first 8, every prefill layer
-             launching the flash kernel; then ``serve.build(..., int8=True,
-             mesh=...)`` quantizes on the mesh and serves phase 4's int8
-             prompt, whose 8 tokens must equal phase 4's int8 first 8 bit for
-             bit. With two cards or more, a 2-rank
+             Then, after a warm-up request at the timed shape (it captures
+             the mesh's decode step), phase 4's first prompt through the
+             sharded serving path at 32 layers, decoding from the captured
+             step with no capture: its 32 greedy tokens must equal phase
+             4's, every prefill layer launching the flash kernel; then
+             ``serve.build(..., int8=True, mesh=...)`` quantizes on the mesh
+             and serves phase 4's int8 prompt the same way, whose 32 tokens
+             must equal phase 4's int8 tokens bit for bit. Each is served
+             once more through the eager mesh loop, whose tokens must
+             equal the graph's (``decode_graph`` lines ``sharded`` and
+             ``sharded_int8``). With two cards or more, a 2-rank
              (4 with four cards) NCCL gang of the tiny model
              (``tools/dryrun.py``, every row that fits: at 4 ranks the
              sequence rows ``fsdp_sp_tp`` and ``ulysses-sp`` and the
@@ -145,13 +154,22 @@ neither the kernels line nor the last line, since no main path ran):
              ones logged with their gaps (in bf16 at random init a step of
              SGD moves them by more than rounding), its batch norm's
              running stats equal on the four ranks (their digest). Last, the
-             serving gang: ``serve.main`` with SERVE_GANG's argv (Llama-3-8B,
-             32 layers, 4 x 2048, 8 greedy tokens, 2 requests) through the
-             launcher at tp 4, in bf16 and with ``--int8``, against the same
-             argv on one card: the first new token agrees with one card's
-             in >= 3 of 4 rows, every rank launches the flash kernel once a
-             layer a request, the ranks' int8 shard digests are those of one
-             card's quantized tree's tp blocks; TTFT, decode rate and peak
+             serving gangs (SERVE_GANGS): Llama-3-8B (32 layers, 4 x 2048,
+             32 greedy tokens, 2 requests) at tp 4 in bf16 and with
+             ``--int8``, and Mixtral-8x7B (16 layers, the same traffic) at
+             ``serve.mesh_layout``'s fsdp 2 x ep 2. The launcher starts this
+             script's ``--serve-gang-job`` on each card, which runs
+             ``serve.main`` with the gang's argv (every decode step replayed
+             from the rank's captured graph, its collectives inside: one
+             capture in the first request, none in the second), then
+             serves the last request's prompt again through the eager mesh
+             loop on the same weights: the rank's captured tokens must
+             equal its eager tokens (the teacher-forced logit gaps are
+             logged beside). Against the same argv on one card: the first
+             new token agrees in >= 3 of 4 rows, every rank launches the
+             flash kernel once a layer a request, the ranks' int8 shard
+             digests are those of one card's quantized tree's tp blocks;
+             TTFT, decode rate, ms a step against the rank's bound and peak
              memory a rank beside one card's. With one card, the summary
              records ``"nccl_ranks": 1``.
 9. longctx - the long-context twin (``workloads/train_longctx.py``) at
@@ -223,7 +241,8 @@ kernel's ``tp_shapes`` holds its numbers at phase 3's per-rank tp shapes,
 ``sp_shapes`` at the Ulysses per-rank shapes, ``bert_shapes`` at BERT's,
 ``pp_shapes`` at the pipeline stage's and ``mixtral_shapes`` at Mixtral's
 training batch (B4 S4096 H32/Hkv8); the forward's ``serve_tp4_shape`` at a
-tp 4 serving rank's prefill (B4 S2048 H8/Hkv2). In the kernels line, the forward's
+tp 4 serving rank's prefill (B4 S2048 H8/Hkv2) and ``serve_ep_shape`` at a
+Mixtral fsdp 2 x ep 2 serving rank's (B2 S2048 H32/Hkv8). In the kernels line, the forward's
 ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` and
 ``tflops`` are taken at the serving shape and ``ms_train``,
 ``plain_ms_train``, ``bound_ms_train``, ``bound_by_train``,
@@ -311,16 +330,28 @@ SP_SHAPES = {8: (2, 4, 1), 16: (4, 2, 2), 32: (8, 1, 1)}
 # default length too, where the plain version's [S, S] scores (68 GB a
 # head) cannot exist.
 SP_CHECK_SEQ, SP_TIME_SEQ = 32768, 131072
-SHARDED_SERVE = {"batch": 4, "prompt": 2048, "new_tokens": 8}
-# The serving gang on four cards (tp 4 x fsdp 1: every rank holds the 4
-# rows and a quarter of the heads): serve.main's argv at 32 layers, in bf16
-# and with --int8, against the same argv on one card. The first new token
-# must agree with one card's in >= 3 of 4 rows (tp sums in another order).
-SERVE_GANG = ["--model", "llama3_8b", "--batch", "4", "--prompt-len", "2048",
-              "--new-tokens", "8", "--temperature", "0", "--requests", "2"]
+SHARDED_SERVE = {"batch": 4, "prompt": 2048, "new_tokens": 32}
+# The serving gangs on four cards, each serve.main's argv against the same
+# argv on one card: Llama-3-8B at 32 layers at tp 4 x fsdp 1 (every rank
+# holds the 4 rows and a quarter of the heads), in bf16 and with --int8, and
+# Mixtral-8x7B at phase 11 (b)'s 16 layers on mesh_layout's fsdp 2 x ep 2
+# (each rank 2 of the rows and 4 of the 8 experts, gathered over fsdp a
+# layer at a time). The first new token must agree with one card's in >= 3
+# of 4 rows (the gang sums in another order).
+_LLAMA_GANG = ["--model", "llama3_8b", "--batch", "4", "--prompt-len", "2048",
+               "--new-tokens", "32", "--temperature", "0", "--requests", "2"]
+SERVE_GANGS = {
+    "serve": _LLAMA_GANG,
+    "serve_int8": _LLAMA_GANG + ["--int8"],
+    "serve_mixtral": ["--model", "mixtral_8x7b", "--layers", "16", "--batch", "4",
+                      "--prompt-len", "2048", "--new-tokens", "32", "--temperature", "0",
+                      "--requests", "2"],
+}
 # A tp 4 serving rank's prefill attention (Llama-3-8B's 32/8 heads over tp
-# 4, phase 4's 4 x 2048): held and timed in phase 3.
+# 4, phase 4's 4 x 2048) and a Mixtral fsdp 2 x ep 2 rank's (2 of the 4
+# rows, every head): held and timed in phase 3.
 SERVE_TP4_SHAPE = (4, 2048, 8, 2, 128, True)
+SERVE_EP_SHAPE = (2, 2048, 32, 8, 128, True)
 # Phase 3's attention at the shapes this slice's paths give the kernels:
 # BERT-large (non-causal, 16 heads of 64, S512) as one batch shard of the
 # twin holds it (B8) and as its tp 2 rank (H8), and one microbatch of the
@@ -522,10 +553,10 @@ def time_fwd(q, k, v, causal) -> dict:
 
 
 def phase_kernels(seed: int) -> dict:
-    """Flash forward kernel vs its plain version at the serving shape, a tp
-    4 serving rank's and the edge cases; returns the numbers of the
+    """Flash forward kernel vs its plain version at the serving shape, the
+    serving gangs' ranks' and the edge cases; returns the numbers of the
     main-path case for the kernels line, the tp 4 rank's under
-    ``serve_tp4``."""
+    ``serve_tp4`` and the fsdp 2 x ep 2 rank's under ``serve_ep``."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as A
@@ -534,7 +565,7 @@ def phase_kernels(seed: int) -> dict:
     cases = [
         ("main_path", 4, 2048, 32, 8, 128, True, torch.bfloat16, True),
         ("serve_tp4", *SERVE_TP4_SHAPE, torch.bfloat16, True),
-        ("b2_causal", 2, 2048, 32, 8, 128, True, torch.bfloat16, False),
+        ("serve_ep", *SERVE_EP_SHAPE, torch.bfloat16, True),
         ("b2_s8192_causal", 2, 8192, 32, 8, 128, True, torch.bfloat16, False),
         ("b2_full", 2, 2048, 32, 8, 128, False, torch.bfloat16, True),
         ("ragged_causal", 2, 1000, 32, 8, 128, True, torch.bfloat16, False),
@@ -551,7 +582,7 @@ def phase_kernels(seed: int) -> dict:
         ("perf_long_context_32k", 1, 32768, 8, 8, 128, True, torch.bfloat16, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    main = None
+    kept = {}
     for name, b, s, h, hkv, d, causal, dtype, timed in cases:
         q = torch.randn(b, s, h, d, device="cuda", dtype=dtype, generator=gen)
         k = torch.randn(b, s, hkv, d, device="cuda", dtype=dtype, generator=gen)
@@ -562,13 +593,11 @@ def phase_kernels(seed: int) -> dict:
         if timed:
             fields.update(time_fwd(q, k, v, causal))
         log("kernels", **fields)
-        if name == "main_path":
-            main = fields
-        elif name == "serve_tp4":
-            serve_tp4 = fields
+        if name in ("main_path", "serve_tp4", "serve_ep"):
+            kept[name] = fields
         del q, k, v, out, lse
         torch.cuda.empty_cache()
-    return {**main, "serve_tp4": serve_tp4}
+    return {**kept.pop("main_path"), **kept}
 
 
 def bwd_stats(q, k, v, do, lse, delta, causal, dq, dk, dv) -> dict:
@@ -1071,54 +1100,76 @@ def _reset_graph_counts() -> None:
     generate.Decoder.capture_s = 0.0
 
 
-def decode_bound(params, config, batch: int, s_max: int) -> dict:
+def decode_bound(params, config, batch: int, s_max: int, mesh=None) -> dict:
     """Least time of one decode step on this card: the larger of its bytes
     over the memory rate (every weight read once, the embedding's B rows
     only, and the K and V of all ``s_max`` cache slots, which the step
     attends over) and its products over the bf16 peak (2 operations a
-    weight a row). ``upcast_bytes``: what the eager einsum's f32 copy of K
-    writes and reads on top, not counted in the bound."""
+    weight a row). On an active mesh, one rank's step: ``batch`` is its
+    rows, the weights are what its products read, its local shards
+    gathered whole over fsdp where they shard there (counted from
+    ``to_local``, since a DTensor's ``numel`` is global), and the cache is
+    its rows and KV heads. ``gathered_bytes``: what the rank receives over
+    fsdp a step, each leaf once (part of the weight bytes; the embedding
+    table's besides). ``upcast_bytes``: what the eager einsum's f32 copy of
+    K writes and reads on top, not counted in the bound."""
     import torch
+    from torch.distributed.tensor import DTensor, Shard
 
-    from hivedscheduler_tpu_torch.models import perf, transformer
+    from hivedscheduler_tpu_torch.models import generate, perf, transformer
+    from hivedscheduler_tpu_torch.parallel import sharding
 
-    def nbytes(tree):
-        return sum(t.numel() * t.element_size() for t in transformer.leaves(tree))
+    def used(t):
+        """(elements this rank's products read, of them received over fsdp)."""
+        if not isinstance(t, DTensor):
+            return t.numel(), 0
+        local = t.to_local().numel()
+        over_fsdp = dict(zip(t.device_mesh.mesh_dim_names, t.placements)).get("fsdp")
+        n = sharding.axes_size("fsdp", mesh) if isinstance(over_fsdp, Shard) else 1
+        return local * n, local * (n - 1)
 
     embed = params["embed"]
-    weights = nbytes(params) - nbytes(embed)
-    weights += (nbytes(embed) if config.tied_embeddings else 0) + nbytes(embed[:batch])
-    elems = config.n_layers * batch * s_max * config.n_kv_heads * config.head_dim
+    read = [t for t in transformer.leaves(params) if t is not embed]
+    if config.tied_embeddings:
+        read.append(embed)
+    weights = (sum(used(t)[0] * t.element_size() for t in read)
+               + batch * config.d_model * embed.element_size())
+    gathered = sum(used(t)[1] * t.element_size() for t in transformer.leaves(params))
+    kv = config.n_kv_heads
+    if sharding.is_active(mesh) and generate._heads_local(config, batch, mesh):
+        kv //= sharding.axes_size("tp", mesh)
+    elems = config.n_layers * batch * s_max * kv * config.head_dim
     cache = 2 * elems * (torch.finfo(config.dtype).bits // 8)
-    products = 2 * batch * (perf.n_params(params) - embed.numel()
-                            + (embed.numel() if config.tied_embeddings else 0))
+    products = 2 * batch * sum(used(t)[0] for t in read)
     t_bytes = (weights + cache) / perf.H100_BYTES_PER_S
     t_ops = products / perf.H100_BF16_FLOPS
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "weight_bytes": weights, "cache_bytes": cache, "upcast_bytes": 8 * elems}
+            "weight_bytes": weights, "gathered_bytes": gathered, "cache_bytes": cache,
+            "upcast_bytes": 8 * elems}
 
 
 def check_decode_graph(phase: str, params, config, prompt, new_tokens: int, graph: dict,
-                       capture_ms: float, ffn=None) -> None:
+                       capture_ms: float, ffn=None, mesh=None) -> None:
     """One request through the eager plain loop (``plain=True``) at the
-    graph request's shape and prompt: its tokens must equal the graph's.
-    Logs the ``decode_graph`` line: captures, their time (the warm-up's),
-    replays since ``_reset_graph_counts``, ms a step of both against the
-    step's bound, tok/s of both."""
+    graph request's shape and prompt (on ``mesh``: this rank's rows): its
+    tokens must equal the graph's. Logs the ``decode_graph`` line:
+    captures, their time (the warm-up's), replays since
+    ``_reset_graph_counts``, ms a step of both against the step's bound,
+    tok/s of both."""
     import torch
 
     from hivedscheduler_tpu_torch import serve
     from hivedscheduler_tpu_torch.models import generate
 
     replays, captures = generate.Decoder.replays, generate.Decoder.captures
-    plain = serve.run_request(params, prompt, config, new_tokens, ffn=ffn, plain=True)
+    plain = serve.run_request(params, prompt, config, new_tokens, mesh=mesh, ffn=ffn, plain=True)
     if not torch.equal(plain["tokens"], graph["tokens"]):
         rows = (plain["tokens"] != graph["tokens"]).any(1).nonzero().flatten().tolist()
         raise AssertionError(f"{phase}: the captured decode's tokens differ from the eager "
                              f"loop's in rows {rows}")
     b, t = prompt.shape
-    bound = decode_bound(params, config, b, t + new_tokens)
+    bound = decode_bound(params, config, b, t + new_tokens, mesh)
     step_ms = 1e3 * b / graph["decode_tok_s"]
     log("decode_graph", path=phase, batch=b, prompt=t, new_tokens=new_tokens,
         captures=captures, capture_ms=capture_ms, replays=replays,
@@ -1409,6 +1460,41 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def nccl_capture_probe(mesh, seed: int) -> None:
+    """The port's collectives over the one-rank NCCL group (all-gather,
+    reduce-scatter, all-reduce by sum and by max) captured in one CUDA
+    graph by the decode step's capture (``generate._capture``: a warm-up
+    run on a side stream, then the capture) and replayed on fresh inputs:
+    each replay's outputs must be its inputs."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import generate
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    x = torch.zeros(4096, dtype=torch.bfloat16, device="cuda")
+
+    def collectives():
+        return torch.cat([sharding._all_gather(x, 0, mesh, "fsdp"),
+                          sharding._reduce_scatter(x, 0, mesh, "fsdp"),
+                          sharding._all_reduce(x, mesh, "tp"),
+                          sharding._all_reduce(x, mesh, "tp", "max")])
+
+    with torch.inference_mode():
+        replay, out = generate._capture(collectives, lambda: None)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        replays = 3
+        for _ in range(replays):
+            x.copy_(torch.randn(x.shape, device="cuda", generator=gen))
+            replay()
+            if not torch.equal(out, x.repeat(4)):
+                raise AssertionError("a captured NCCL collective over one rank did not return "
+                                     "its replay's input")
+    torch.cuda.synchronize()
+    log("sharded", step="nccl_capture", collectives=["all_gather", "reduce_scatter",
+                                                     "all_reduce_sum", "all_reduce_max"],
+        elements=x.numel(), dtype="bfloat16", replays=replays, outputs_equal_inputs=True)
+
+
 def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict:
     """The sharded paths on a one-rank NCCL mesh (see the module docstring,
     phase 8); returns each kernel's launches and the step times."""
@@ -1435,6 +1521,7 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
                           ("all_reduce", sharding._all_reduce(x, mesh, "tp", "max"))):
             if not torch.equal(got, x):
                 raise AssertionError(f"NCCL {name} over one rank changed its input")
+        nccl_capture_probe(mesh, seed)
         # (a) Phase 5's model, seed and batch through the sharded step.
         t0 = time.perf_counter()
         config = dataclasses.replace(transformer.llama3_8b(), n_layers=TRAIN["layers"],
@@ -1488,55 +1575,53 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
         del params, optimizer, step, tokens
         torch.cuda.empty_cache()
 
-        # (b) Phase 4's first prompt through the sharded serving path.
-        t0 = time.perf_counter()
-        config, params = serve.build("llama3_8b", seed, "cuda", mesh=mesh)
-        prompt = sharding.shard_batch(served["prompt0"], mesh).cuda()
-        # A short warm-up request first, as phase 4 runs one, so that the
-        # decode rate is compared warm with warm.
-        serve.run_request(params, prompt[:1, :256], config, 2, mesh=mesh)
-        _reset_launches()
-        res = serve.run_request(params, prompt, config, SHARDED_SERVE["new_tokens"], mesh=mesh)
-        serve_launches = entry.kernel_launches()
-        want = served["tokens0"][:, :SHARDED_SERVE["new_tokens"]]
-        if not torch.equal(res["tokens"].cpu(), want):
-            raise AssertionError("sharded serving tokens differ from phase 4's")
-        if serve_launches["flash_fwd"] != config.n_layers:
-            raise AssertionError(f"sharded prefill launched the flash kernel "
-                                 f"{serve_launches['flash_fwd']} times for {config.n_layers} layers")
-        log("sharded", step="serve", **SHARDED_SERVE, ttft_ms=res["ttft_ms"],
-            decode_tok_s=res["decode_tok_s"], tokens_equal_unsharded=True,
-            launches=serve_launches, seconds=time.perf_counter() - t0)
-        if profile:
-            profile_request(params, prompt, config, res, SHARDED_SERVE["new_tokens"], mesh,
-                            window="sharded_")
-        del params
-        torch.cuda.empty_cache()
-
-        # (c) int8: quantized on the mesh (its max's collectives over one
-        # rank skipped), phase 4's int8 prompt, phase 4's int8 tokens.
-        t0 = time.perf_counter()
-        config, params = serve.build("llama3_8b", seed, "cuda", int8=True, mesh=mesh)
-        prompt = sharding.shard_batch(served["int8_prompt"], mesh).cuda()
-        serve.run_request(params, prompt[:1, :256], config, 2, mesh=mesh)
-        _reset_launches()
-        res = serve.run_request(params, prompt, config, SHARDED_SERVE["new_tokens"], mesh=mesh)
-        int8_launches = entry.kernel_launches()
-        if not torch.equal(res["tokens"].cpu(),
-                           served["int8_tokens"][:, :SHARDED_SERVE["new_tokens"]]):
-            raise AssertionError("sharded int8 serving tokens differ from phase 4's")
-        if int8_launches["flash_fwd"] != config.n_layers:
-            raise AssertionError(f"sharded int8 prefill launched the flash kernel "
-                                 f"{int8_launches['flash_fwd']} times for {config.n_layers} layers")
-        log("sharded", step="serve_int8", **SHARDED_SERVE, ttft_ms=res["ttft_ms"],
-            decode_tok_s=res["decode_tok_s"], tokens_equal_unsharded=True,
-            launches=int8_launches, seconds=time.perf_counter() - t0)
-        serve_launches = {k: serve_launches[k] + int8_launches[k] for k in serve_launches}
-        del params
-        torch.cuda.empty_cache()
+        # (b) Phase 4's first prompt, then (c) its int8 prompt through the
+        # sharded serving path (int8 quantized on the mesh, its max's
+        # collectives over one rank skipped): phase 4's tokens, decoded
+        # from the mesh's captured step.
+        serve_launches = dict.fromkeys(train_launches, 0)
+        for int8, served_prompt, served_tokens in (
+                (False, served["prompt0"], served["tokens0"]),
+                (True, served["int8_prompt"], served["int8_tokens"])):
+            path = "sharded_int8" if int8 else "sharded"
+            t0 = time.perf_counter()
+            config, params = serve.build("llama3_8b", seed, "cuda", int8=int8, mesh=mesh)
+            prompt = sharding.shard_batch(served_prompt, mesh).cuda()
+            warm_prompt = sharding.shard_batch(torch.from_numpy(serve.synthetic_tokens(
+                np.random.default_rng(seed + 3), *served_prompt.shape, config.vocab_size)),
+                mesh).cuda()
+            # A warm-up request at the timed shape first, as phase 4 runs
+            # one: it captures the decode step, so the timed request does not.
+            _reset_graph_counts()
+            warm = serve.run_request(params, warm_prompt, config, SHARDED_SERVE["new_tokens"],
+                                     mesh=mesh)
+            _reset_launches()
+            res = serve.run_request(params, prompt, config, SHARDED_SERVE["new_tokens"],
+                                    mesh=mesh)
+            launches = entry.kernel_launches()
+            if warm["captures"] != 1 or res["captures"]:
+                raise AssertionError(f"{path}: the warm-up captured {warm['captures']} decode "
+                                     f"graphs and the timed request {res['captures']}")
+            if not torch.equal(res["tokens"].cpu(), served_tokens):
+                raise AssertionError(f"{path} serving tokens differ from phase 4's")
+            if launches["flash_fwd"] != config.n_layers:
+                raise AssertionError(f"{path} prefill launched the flash kernel "
+                                     f"{launches['flash_fwd']} times for {config.n_layers} layers")
+            log("sharded", step="serve_int8" if int8 else "serve", **SHARDED_SERVE,
+                ttft_ms=res["ttft_ms"], decode_tok_s=res["decode_tok_s"],
+                tokens_equal_unsharded=True, captures=res["captures"], launches=launches,
+                seconds=time.perf_counter() - t0)
+            check_decode_graph(path, params, config, prompt, SHARDED_SERVE["new_tokens"], res,
+                               warm["capture_ms"], mesh=mesh)
+            if profile and not int8:
+                profile_request(params, prompt, config, res, SHARDED_SERVE["new_tokens"], mesh,
+                                window="sharded_")
+            serve_launches = {k: serve_launches[k] + launches[k] for k in launches}
+            del params
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    ranks = phase_gang()  # (c) gangs across cards, where the machine has them
+    ranks = phase_gang(profile)  # (c) gangs across cards, where the machine has them
     log("sharded", step="summary", nccl_ranks=ranks, step_ms_mean=step_ms,
         unsharded_step_ms_mean=trained["step_ms_mean"])
     return {k: train_launches[k] + serve_launches[k] for k in train_launches}
@@ -1620,7 +1705,7 @@ def check_gang(name: str, one: list, lines: list, ranks: int, launches, gated_st
         speedup=one_ms / mean_ms, launches_per_rank_step=launches, **fields)
 
 
-def phase_gang() -> int:
+def phase_gang(profile: bool = False) -> int:
     """Gangs across cards, where the machine has two or more (see the
     module docstring, phase 8): every dryrun row that fits as an NCCL gang
     of 2 ranks, or 4 with four cards (the sequence rows then launch the
@@ -1710,15 +1795,10 @@ def phase_gang() -> int:
                bn_stats_equal_on_ranks=True,
                images_per_s_one_card=rg["batch"] * ranks / (one[-1]["step_ms"] * 1e-3))
 
-    serve_gang(ranks)
+    serve_gang(ranks, profile)
     return ranks
 
 
-# One request line of serve.main (the ranks' lines share one pipe).
-_SERVE_REQUEST = re.compile(
-    r"request (\d+): ttft ([\d.]+) ms, decode ([\d.]+) tok/s, flash launches (\d+), "
-    r"decode graphs captured \d+ \([\d.]+ ms\), first local ids \[[^]]*\], "
-    r"first of each row \[([\d, ]*)\], peak ([\d.]+) GiB")
 _INT8_DIGEST = re.compile(r"serving int8-quantized linears, local shards sha256 ([0-9a-f]{64})")
 
 
@@ -1743,52 +1823,165 @@ def tp_block_digests(params, tp: int) -> list:
             for r in range(tp)]
 
 
-def serve_gang(ranks: int) -> None:
-    """The serving gang (``SERVE_GANG``) through the pod's launcher at tp
-    4, in bf16 and int8, against the same argv on one card in this
-    process: first tokens, the int8 shards' digests, a flash launch a layer
-    a rank, TTFT, decode rate and peak memory."""
+def _argv_value(argv: list, flag: str, default=None):
+    return argv[argv.index(flag) + 1] if flag in argv else default
+
+
+def serve_gang_job(name: str, profile: bool = False) -> dict:
+    """One rank of the serving gang ``SERVE_GANGS[name]``, started by the
+    pod's launcher with its per-card block: ``serve.main`` with the gang's
+    argv (its decode steps replayed from the rank's captured graph), then
+    the weights rebuilt from the seed as ``serve.main`` built them and the
+    last request's prompt (``serve.main``'s draws, in its order) served
+    captured again (its tokens must be ``serve.main``'s; the peak memory of
+    the weights, the cache and the graph's pool is taken over it) and
+    through the eager mesh loop (``plain=True``), and teacher-forced on
+    the captured tokens through eager one-token chunks: each captured
+    token's logit against the eager step's best. With ``profile``, the
+    device time by kernel over one more request (every rank, in step).
+    Returns the rank's numbers (``peak_gib``: ``serve.main``'s, its
+    weights' init included); the caller gates them."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hivedscheduler_tpu_torch import serve
+    from hivedscheduler_tpu_torch.models import generate
+    from hivedscheduler_tpu_torch.parallel import sharding
+    from hivedscheduler_tpu_torch.parallel.mesh import make_mesh, world_size
+
+    argv = SERVE_GANGS[name]
+    results = serve.main(argv)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()  # serve.main's weights, owner and graphs are gone
+    model, seed = _argv_value(argv, "--model"), int(_argv_value(argv, "--seed", 0))
+    layers = _argv_value(argv, "--layers")
+    new_tokens = int(_argv_value(argv, "--new-tokens"))
+    captured = results[-1]["tokens"]
+    device = captured.device
+    layout = serve.mesh_layout(model, world_size())
+    mesh = make_mesh(layout, device)
+    config, params = serve.build(model, seed, device, "--int8" in argv,
+                                 layers and int(layers), None, mesh)
+    ffn = serve.decode_hook(config)
+    per = layout.dp * layout.fsdp
+    batch = max(int(_argv_value(argv, "--batch")) // per, 1) * per
+    rng = np.random.default_rng(seed + 1)
+    for _ in results:
+        prompt = serve.synthetic_tokens(rng, batch, int(_argv_value(argv, "--prompt-len")),
+                                        config.vocab_size)
+    prompt = sharding.shard_batch(torch.from_numpy(prompt), mesh).to(device)
+    # The last request again from a fresh capture on the rebuilt weights
+    # (their tokens must be serve.main's), then through the eager loop.
+    torch.cuda.reset_peak_memory_stats()
+    again = serve.run_request(params, prompt, config, new_tokens, mesh=mesh, ffn=ffn)
+    serving_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if profile:  # the idle share against serve.main's last request, which captured nothing
+        profile_request(params, prompt, config, results[-1], new_tokens, mesh,
+                        window=f"{name}_rank{dist.get_rank()}_", ffn=ffn)
+    eager = serve.run_request(params, prompt, config, new_tokens, mesh=mesh, ffn=ffn, plain=True)
+    b, t = prompt.shape
+    with torch.inference_mode():
+        cache = generate.init_cache(config, b, t + new_tokens, device, mesh)
+        logits, cache = generate.prefill(params, prompt, cache, config, mesh=mesh, ffn=ffn)
+        gaps = []
+        for i in range(new_tokens):
+            token = captured[:, i]
+            gaps.append((logits.amax(-1) - logits.gather(-1, token[:, None])[:, 0]).max().item())
+            if i + 1 < new_tokens:
+                logits, cache = generate.prefill(params, token[:, None], cache, config,
+                                                 chunked=True, mesh=mesh, ffn=ffn)
+    bound = decode_bound(params, config, b, t + new_tokens, mesh)
+    out = {
+        "rank": dist.get_rank(), "batch_rank": sharding.batch_rank(mesh), "rows": b,
+        "requests": [{"ttft_ms": r["ttft_ms"], "decode_tok_s": r["decode_tok_s"],
+                      "decode_s": b * (new_tokens - 1) / r["decode_tok_s"],
+                      "flash_launches": r["flash_launches"], "captures": r["captures"],
+                      "capture_ms": r["capture_ms"], "first": r["tokens"][:, 0].tolist()}
+                     for r in results],
+        "rebuilt_tokens_equal": bool(torch.equal(captured, again["tokens"])),
+        "tokens_equal_eager": bool(torch.equal(captured, eager["tokens"])),
+        "first_agree_eager_rows": int((captured[:, 0] == eager["tokens"][:, 0]).sum()),
+        "max_logit_gap_vs_eager": max(gaps),
+        "step_ms": 1e3 * b / results[-1]["decode_tok_s"],
+        "eager_step_ms": 1e3 * b / eager["decode_tok_s"], "peak_gib": peak_gib,
+        "serving_peak_gib": serving_peak_gib, **bound,
+    }
+    del params, cache
+    dist.barrier()  # no rank's store goes while a peer still reads it
+    dist.destroy_process_group()
+    return out
+
+
+def serve_gang(ranks: int, profile: bool = False) -> None:
+    """The serving gangs (``SERVE_GANGS``) through the pod's launcher, each
+    rank this script's ``--serve-gang-job``, against the same argv on one
+    card in this process. Gates: every rank's captured tokens equal its
+    eager loop's, one capture in the first request and none after, a flash
+    launch a layer a rank a request, the first token of >= 3 of 4 rows as
+    one card's (the ranks holding a row agreeing), the int8 shards'
+    digests those of one card's tp blocks. Logs TTFT, decode rate, ms a
+    step against a rank's bound, capture ms and peak memory a rank."""
     import torch
 
     from hivedscheduler_tpu_torch import serve
 
-    for int8 in (False, True):
-        argv = SERVE_GANG + (["--int8"] if int8 else [])
+    for name, argv in SERVE_GANGS.items():
+        model, int8 = _argv_value(argv, "--model"), "--int8" in argv
         torch.cuda.reset_peak_memory_stats()
         one = serve.main(argv)  # this process, card 0
         one_peak = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.empty_cache()
         want_digests = None
         if int8:
-            config, params = serve.build("llama3_8b", 0, "cuda", int8=True)
+            config, params = serve.build(model, 0, one[-1]["tokens"].device, int8=True)
             want_digests = sorted(tp_block_digests(params, ranks))
             del params
             torch.cuda.empty_cache()
-        out = launch_pod("hivedscheduler_tpu_torch.serve", argv, ranks)
-        lines = [m.groups() for m in _SERVE_REQUEST.finditer(out)]
-        if len(lines) != ranks * len(one):
-            raise AssertionError(f"serving gang: {len(lines)} request lines from {ranks} ranks")
-        layers = serve.MODELS["llama3_8b"]().n_layers
+        out = launch_pod("chip_smoke", ["--serve-gang-job", name]
+                         + (["--profile"] if profile else []), ranks)
+        jobs = [json.loads(line)["serve_gang_job"] for line in out.splitlines()
+                if line.startswith('{"serve_gang_job"')]
+        if len(jobs) != ranks:
+            raise AssertionError(f"serving gang {name}: {len(jobs)} results from {ranks} ranks")
+        layers = int(_argv_value(argv, "--layers", serve.MODELS[model]().n_layers))
+        for job in jobs:
+            where = f"serving gang {name}, rank {job['rank']}"
+            if not job["rebuilt_tokens_equal"]:
+                raise AssertionError(f"{where}: the rebuilt weights' captured tokens are not "
+                                     f"serve.main's")
+            if not job["tokens_equal_eager"]:
+                raise AssertionError(f"{where}: the captured decode's tokens differ from the "
+                                     f"rank's eager loop's (first token in "
+                                     f"{job['first_agree_eager_rows']} rows; max logit gap "
+                                     f"{job['max_logit_gap_vs_eager']})")
+            captures = [r["captures"] for r in job["requests"]]
+            if captures != [1] + [0] * (len(one) - 1):
+                raise AssertionError(f"{where}: decode graphs captured {captures} a request")
+            if {r["flash_launches"] for r in job["requests"]} != {layers}:
+                raise AssertionError(f"{where}: flash launches "
+                                     f"{[r['flash_launches'] for r in job['requests']]}, not "
+                                     f"{layers} a request")
         requests = []
         for r, res in enumerate(one):
-            mine = [ln for ln in lines if int(ln[0]) == r]
             want = res["tokens"][:, 0].tolist()
-            firsts = {ln[4] for ln in mine}
-            if len(firsts) != 1:
-                raise AssertionError(f"serving gang request {r}: the tp ranks' tokens differ "
-                                     f"{firsts}")
-            got = [int(t) for t in firsts.pop().split(",")]
-            agree = sum(a == b for a, b in zip(got, want))
-            if agree < 3:
-                raise AssertionError(f"serving gang request {r}: first tokens {got} agree with "
-                                     f"one card's {want} in {agree}/4 rows")
-            if {int(ln[3]) for ln in mine} != {layers}:
-                raise AssertionError(f"serving gang request {r}: flash launches "
-                                     f"{[ln[3] for ln in mine]}, not {layers} a rank")
+            got = {}
+            for job in jobs:
+                for i, token in enumerate(job["requests"][r]["first"]):
+                    row = job["batch_rank"] * job["rows"] + i
+                    if got.setdefault(row, token) != token:
+                        raise AssertionError(f"serving gang {name} request {r}: the ranks "
+                                             f"holding row {row} made different tokens")
+            agree = sum(got[i] == w for i, w in enumerate(want))
+            if sorted(got) != list(range(len(want))) or agree < 3:
+                raise AssertionError(f"serving gang {name} request {r}: first tokens {got} "
+                                     f"agree with one card's {want} in {agree}/4 rows")
+            new_tokens = res["tokens"].shape[1]
             requests.append({
                 "request": r, "first_tokens_agree_rows": agree,
-                "ttft_ms": max(float(ln[1]) for ln in mine),
-                "decode_tok_s": min(float(ln[2]) for ln in mine),
+                "ttft_ms": max(job["requests"][r]["ttft_ms"] for job in jobs),
+                "decode_tok_s": len(want) * (new_tokens - 1)
+                / max(job["requests"][r]["decode_s"] for job in jobs),
                 "one_card_ttft_ms": res["ttft_ms"], "one_card_decode_tok_s": res["decode_tok_s"]})
         fields = {}
         if int8:
@@ -1798,10 +1991,19 @@ def serve_gang(ranks: int) -> None:
                                      f"one card's tp blocks' {want_digests}")
             fields["int8_digests_equal_one_card_blocks"] = True
         last = requests[-1]
-        log("gang", step="serve_int8" if int8 else "serve", ranks=ranks,
-            mesh=dataclasses.asdict(serve.mesh_layout("llama3_8b", ranks)), argv=argv,
+        log("gang", step=name, ranks=ranks,
+            mesh=dataclasses.asdict(serve.mesh_layout(model, ranks)), argv=argv,
             requests=requests, flash_launches_per_rank_request=layers,
-            peak_gib_per_rank=max(float(ln[5]) for ln in lines), one_card_peak_gib=one_peak,
+            captured_tokens_equal_eager_every_rank=True,
+            max_logit_gap_vs_eager=max(job["max_logit_gap_vs_eager"] for job in jobs),
+            step_ms_per_rank=[job["step_ms"] for job in jobs],
+            eager_step_ms_per_rank=[job["eager_step_ms"] for job in jobs],
+            capture_ms_per_rank=[job["requests"][0]["capture_ms"] for job in jobs],
+            **{key: jobs[0][key] for key in ("bound_ms", "bound_by", "weight_bytes",
+                                             "gathered_bytes", "cache_bytes")},
+            peak_gib_per_rank=max(job["peak_gib"] for job in jobs),
+            serving_peak_gib_per_rank=max(job["serving_peak_gib"] for job in jobs),
+            one_card_peak_gib=one_peak,
             ttft_speedup=last["one_card_ttft_ms"] / last["ttft_ms"],
             decode_speedup=last["decode_tok_s"] / last["one_card_decode_tok_s"], **fields)
 
@@ -2332,13 +2534,16 @@ def main() -> int:
                              "over one training step and over one step of the "
                              "perf harness's model, unsharded and sharded, "
                              "over one BERT-large step, over Mixtral's "
-                             "request and step and over one ResNet-50 step")
+                             "request and step, over one ResNet-50 step and, "
+                             "on four cards, over a request on each serving "
+                             "gang's rank")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel checks and timings (phase 3)")
     parser.add_argument("--gang-only", action="store_true",
                         help="build, then only the gangs across cards (phase 8's last part); "
                              "needs two cards or more")
     parser.add_argument("--workloads-job", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--serve-gang-job", metavar="NAME", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -2348,6 +2553,10 @@ def main() -> int:
         return 1
     if args.workloads_job:  # phase 6's pod process, started by the launcher
         print(json.dumps({"workloads_job": workloads_job(args.seed, args.workloads_job)}),
+              flush=True)
+        return 0
+    if args.serve_gang_job:  # a serving gang's rank, started by the launcher
+        print(json.dumps({"serve_gang_job": serve_gang_job(args.serve_gang_job, args.profile)}),
               flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2366,7 +2575,7 @@ def main() -> int:
 
     log("build", seconds=_build.build_all(), sources=[s.name for s in _build.sources()])
     if args.gang_only:
-        if timed("gang", phase_gang) < 2:
+        if timed("gang", phase_gang, args.profile) < 2:
             raise AssertionError("--gang-only needs two cards or more")
         print(smi)
         return 0
@@ -2406,13 +2615,14 @@ def main() -> int:
            for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
                             ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
                             ("library_ms", "library_ms"), ("tflops", "kernel_tflops"))},
-        # A tp 4 serving rank's prefill (the four-card serving gang's shape).
-        "serve_tp4_shape": {"shape": list(SERVE_TP4_SHAPE[:5]), "causal": SERVE_TP4_SHAPE[5],
-                            "max_abs_err": k["serve_tp4"]["o_max_abs_err"],
-                            **{key: k["serve_tp4"][src] for key, src in (
-                                ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
-                                ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
-                                ("library_ms", "library_ms"), ("tflops", "kernel_tflops"))}},
+        # The four-card serving gangs' ranks' prefills: tp 4, fsdp 2 x ep 2.
+        **{f"{name}_shape": {"shape": list(shape[:5]), "causal": shape[5],
+                             "max_abs_err": k[name]["o_max_abs_err"],
+                             **{key: k[name][src] for key, src in (
+                                 ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                                 ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
+                                 ("library_ms", "library_ms"), ("tflops", "kernel_tflops"))}}
+           for name, shape in (("serve_tp4", SERVE_TP4_SHAPE), ("serve_ep", SERVE_EP_SHAPE))},
         # One rank of a tp gang at the training shape (phase 3).
         **{f"{group}_shapes": rank_shapes(kb, group, "fwd") for group in GROUPS},
         "sp_shapes": sp_shapes(kb, "fwd"),

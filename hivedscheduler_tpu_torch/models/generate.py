@@ -18,19 +18,19 @@ compiled ``decode_step`` serves every position:
   ``ops.attention.mha``, i.e. the flash kernel; decode steps and chunked
   prefill attend over the cache with a grouped GQA einsum (no kernel in
   the JAX package either);
-- on CUDA tensors with no active mesh, the decode step runs from a
-  ``torch.cuda.CUDAGraph``, the port's counterpart of ``jax.jit``: one
-  graph for each (batch, max_len, sampling arguments, ``ffn``) of a
-  parameter tree, captured on that shape's first step and replayed by
-  every later one. It holds the one-token forward, the sampling, the
-  advance of the fill and the copy of the new token into the next step's
-  input: ``generate_scan``'s ``lax.scan`` body. A graph reads fixed
-  addresses, so it is bound to one cache and to the weights it was
-  captured on. Its owner (:func:`decoder`) holds the cache and buffers of
-  each shape, holds the weights only weakly, and is dropped with the
-  first of them; ``decode_step`` replays the graph of the owner whose
-  ``init_cache`` made its cache. The eager loop stays as the plain
-  version of the step (``plain=True``; the CPU path and the mesh path);
+- on CUDA tensors, with an active mesh or without, the decode step runs
+  from a ``torch.cuda.CUDAGraph``, the port's counterpart of ``jax.jit``:
+  one graph for each (batch, max_len, sampling arguments, ``ffn``) of a
+  parameter tree on a mesh (or on none), captured on that shape's first
+  step and replayed by every later one. It holds the one-token forward,
+  the sampling, the advance of the fill and the copy of the new token
+  into the next step's input: ``generate_scan``'s ``lax.scan`` body. A
+  graph reads fixed addresses, so it is bound to one cache and to the
+  weights it was captured on. Its owner (:func:`decoder`) holds the cache
+  and buffers of each shape, holds the weights only weakly, and is
+  dropped with the first of them; ``decode_step`` replays the graph of
+  the owner whose ``init_cache`` made its cache. The eager loop stays as the plain
+  version of the step (``plain=True``, and the CPU path);
 - sampling draws one uniform a vocab entry from a ``torch.Generator``
   outside the graph and picks by the exponential race (the argmax of
   ``p / E`` with ``E = -log(1 - u)``), so the graph and the eager loop give
@@ -43,8 +43,13 @@ compiled ``decode_step`` serves every position:
   before their tp sum, equal to JAX's value in exact arithmetic), the prompt
   and the cache hold this rank's batch rows and its KV heads, the flash
   prefill runs on that block, and the logits are gathered over tp before
-  sampling, so the ranks of a tp group sample from the same logits. The
-  mesh path decodes eagerly (its collectives are not captured);
+  sampling, so the ranks of a tp group sample from the same logits. A
+  rank's captured step holds its collectives (the tp all-reduces, the
+  embedding's, the logits' tp gather, the per-layer fsdp gathers, the MoE
+  routing's token gathers and ep sums), as XLA places them inside JAX's
+  jitted step: the ranks of a gang capture and replay the same steps in
+  the same order, since shapes, sampling arguments and ``ffn`` agree
+  across a tp or ep group;
 - ``ffn``: the hook ``ffn(h_normed, layer, mesh)`` that replaces the dense
   SwiGLU, as in the JAX package: how the MoE family
   (``mixtral.decode_ffn``) rides the same cache machinery, captured steps
@@ -99,7 +104,7 @@ def init_cache(
 ) -> KVCache:
     """An empty cache for ``batch`` rows (on an active mesh: this rank's
     rows and the KV heads it attends). A captured decode step needs its
-    owner's cache instead: ``decoder(params, config).init_cache``."""
+    owner's cache instead: ``decoder(params, config, mesh).init_cache``."""
     c = config
     kv = c.n_kv_heads
     if sharding.is_active(mesh) and _heads_local(c, batch, mesh):
@@ -292,10 +297,10 @@ def prefill(
     return logits[:, -1], cache
 
 
-def _graphed(x: torch.Tensor, mesh: Any) -> bool:
+def _graphed(x: torch.Tensor) -> bool:
     """Whether a decode step on ``x``'s device runs from a captured graph:
-    on CUDA tensors with no active mesh."""
-    return x.is_cuda and not sharding.is_active(mesh)
+    on CUDA tensors, on a mesh or not."""
+    return x.is_cuda
 
 
 def decode_step(
@@ -306,12 +311,12 @@ def decode_step(
     mesh: Any = None,
     ffn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
-    """One decoding step; returns (logits [B, V], cache). On CUDA with no
-    active mesh it replays the captured step of the owner that made
-    ``cache`` (``decoder(params, config).init_cache``; any other CUDA cache
+    """One decoding step; returns (logits [B, V], cache). On CUDA it
+    replays the captured step of the owner that made ``cache``
+    (``decoder(params, config, mesh).init_cache``; any other CUDA cache
     raises); elsewhere it runs eagerly."""
-    if _graphed(cache.k, mesh):
-        return decoder(params, config).step(params, token, cache, ffn), cache
+    if _graphed(cache.k):
+        return decoder(params, config, mesh).step(params, token, cache, ffn), cache
     logits, cache = _forward_cached(params, token[:, None], cache, config, mesh=mesh, ffn=ffn)
     return logits[:, 0], cache
 
@@ -415,13 +420,15 @@ class _Slot:
 
 
 class Decoder:
-    """The captured decode steps of one parameter tree on one card (the
-    port's counterpart of JAX's compile cache for ``decode_step``). Made
-    and found by :func:`decoder`. It holds, for each (batch, max_len), a
-    cache and the step's buffers, and for each (sampling arguments,
-    ``ffn``) of that shape one graph. It refers to the weights weakly:
-    the graphs read their addresses, and :func:`decoder` drops the owner
-    (its graphs, caches and buffers) as soon as one of them is freed.
+    """The captured decode steps of one parameter tree on one card, or of
+    this rank's shards of it on a mesh (the port's counterpart of JAX's
+    compile cache for ``decode_step``). Made and found by :func:`decoder`.
+    It holds, for each (batch, max_len), a cache and the step's buffers
+    (on a mesh: this rank's rows and KV heads), and for each (sampling
+    arguments, ``ffn``) of that shape one graph. It refers to the weights
+    weakly: the graphs read their addresses, and :func:`decoder` drops
+    the owner (its graphs, caches and buffers) as soon as one of them is
+    freed.
 
     ``captures``, ``capture_s`` and ``replays`` count over every owner, as
     the kernels' ``launches`` do."""
@@ -430,8 +437,9 @@ class Decoder:
     capture_s = 0.0
     replays = 0
 
-    def __init__(self, params: Params, config: TransformerConfig):
+    def __init__(self, params: Params, config: TransformerConfig, mesh: Any = None):
         self.config = config
+        self.mesh = mesh
         self.device = params["embed"].device
         self._slots: Dict[Tuple[int, int], _Slot] = {}
 
@@ -440,7 +448,7 @@ class Decoder:
         if slot is None:
             with torch.inference_mode():
                 slot = _Slot(
-                    cache=init_cache(self.config, batch, max_len, self.device),
+                    cache=init_cache(self.config, batch, max_len, self.device, self.mesh),
                     token=torch.zeros(batch, dtype=torch.long, device=self.device),
                 )
             self._slots[(batch, max_len)] = slot
@@ -477,7 +485,7 @@ class Decoder:
 
         def step():
             logits = _forward_tokens(params, slot.token[:, None], cache, config, "cached",
-                                     ffn=ffn)[:, 0]
+                                     mesh=self.mesh, ffn=ffn)[:, 0]
             if sampling == "logits":
                 return logits
             nxt = _pick(logits, slot.noise if sampling else None, *(sampling or ()))
@@ -508,7 +516,7 @@ class Decoder:
         slot = next((s for s in self._slots.values() if s.cache is cache), None)
         if slot is None:
             raise ValueError("a captured decode step writes its owner's cache: make it with "
-                             "generate.decoder(params, config).init_cache(batch, max_len)")
+                             "generate.decoder(params, config, mesh).init_cache(batch, max_len)")
         _check_room(cache, 1)
         with torch.inference_mode():
             slot.token.copy_(token)
@@ -521,13 +529,15 @@ class Decoder:
                ffn: Optional[Callable] = None) -> Iterator[torch.Tensor]:
         """``generate_stream`` through this owner: an eager flash prefill of
         the shape's cache, the first token sampled from its logits, then
-        one replay a token. Each token is yielded as a copy."""
+        one replay a token. Each token is yielded as a copy. On a mesh,
+        ``prompt`` is this rank's rows."""
         b, t = prompt.shape
         slot = self._slot(b, t + max_new_tokens)
         slot.busy = True
         try:
             cache = self._empty(slot.cache)
-            logits, cache = prefill(params, prompt, cache, self.config, ffn=ffn)
+            logits, cache = prefill(params, prompt, cache, self.config, mesh=self.mesh,
+                                    ffn=ffn)
             token = sample_logits(logits, generator, *(sampling or (0.0,)))
             if max_new_tokens > 0:
                 yield token
@@ -550,7 +560,7 @@ class Decoder:
             slot.busy = False
 
 
-# The live owners, by (config, the identities of the tree's leaves). An
+# The live owners, by (config, mesh, the identities of the tree's leaves). An
 # entry leaves as soon as one of its leaves is freed (``weakref.finalize``),
 # so a key never outlives a leaf it names and no graph outlives its weights.
 _DECODERS: Dict[Tuple[Any, ...], Decoder] = {}
@@ -561,16 +571,16 @@ def _forget(key: Tuple[Any, ...], ref: "weakref.ref[Decoder]") -> None:
         del _DECODERS[key]
 
 
-def decoder(params: Params, config: TransformerConfig) -> Decoder:
-    """The owner of ``params``' captured decode steps under ``config``:
-    found by the tree's leaves, made on first use. It lives while every
-    leaf of the tree does and no longer, so dropping the weights drops
-    their graphs and caches."""
+def decoder(params: Params, config: TransformerConfig, mesh: Any = None) -> Decoder:
+    """The owner of ``params``' captured decode steps under ``config`` on
+    ``mesh`` (None: one process): found by the mesh and the tree's leaves,
+    made on first use. It lives while every leaf of the tree does and no
+    longer, so dropping the weights drops their graphs and caches."""
     tensors = leaves(params)
-    key = (config, *map(id, tensors))
+    key = (config, mesh, *map(id, tensors))
     dec = _DECODERS.get(key)
     if dec is None:
-        dec = _DECODERS[key] = Decoder(params, config)
+        dec = _DECODERS[key] = Decoder(params, config, mesh)
         ref = weakref.ref(dec)
         for leaf in tensors:
             weakref.finalize(leaf, _forget, key, ref).atexit = False
@@ -582,7 +592,7 @@ def _plain_stream(
     sampling: Sampling, generator: Optional[torch.Generator], mesh: Any,
     ffn: Optional[Callable],
 ) -> Iterator[torch.Tensor]:
-    """The eager loop: the captured step's plain version, and the mesh path."""
+    """The eager loop: the captured step's plain version."""
     b, t = prompt.shape
     sample = (sampling or (0.0,))
     cache = init_cache(config, b, t + max_new_tokens, device=prompt.device, mesh=mesh)
@@ -612,14 +622,15 @@ def generate_stream(
 ) -> Iterator[torch.Tensor]:
     """Yield the ``max_new_tokens`` new tokens, each [B], as they are made:
     a flash prefill of a fresh cache, then one decode step per token, from
-    the captured graph on CUDA with no active mesh (``plain=True``: the
-    eager loop, the step's plain version). On an active ``mesh``,
-    ``prompt`` is this rank's rows; the ranks of a tp group must pass
-    generators in the same state."""
+    the captured graph on CUDA (``plain=True``: the eager loop, the step's
+    plain version). On an active ``mesh``, ``prompt`` is this rank's rows;
+    the ranks of a tp or ep group must pass generators in the same state,
+    and every rank of the gang must make the same calls, since each
+    step's collectives (captured or eager) span the gang."""
     sampling = _sampling(temperature, generator, top_k, top_p)
-    if not plain and _graphed(prompt, mesh):
-        return decoder(params, config).stream(params, prompt, max_new_tokens, sampling,
-                                              generator, ffn)
+    if not plain and _graphed(prompt):
+        return decoder(params, config, mesh).stream(params, prompt, max_new_tokens, sampling,
+                                                    generator, ffn)
     return _plain_stream(params, prompt, config, max_new_tokens, sampling, generator, mesh, ffn)
 
 
@@ -634,13 +645,15 @@ def generate(
     top_p: float = 1.0,
     ffn: Optional[Callable] = None,
     plain: bool = False,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """Greedy (temperature=0) or sampled generation; returns
     [B, T_prompt + max_new_tokens]. ``ffn``: the MoE hook
-    (``mixtral.decode_ffn``); ``plain``: as in :func:`generate_stream`."""
+    (``mixtral.decode_ffn``); ``plain`` and ``mesh``: as in
+    :func:`generate_stream`."""
     new = generate_stream(
-        params, prompt, config, max_new_tokens, temperature, generator, top_k, top_p, ffn=ffn,
-        plain=plain,
+        params, prompt, config, max_new_tokens, temperature, generator, top_k, top_p, mesh,
+        ffn, plain,
     )
     return torch.cat([prompt] + [tok[:, None].to(prompt.dtype) for tok in new], dim=1)
 
@@ -655,12 +668,15 @@ def generate_scan(
     top_k: int = 0,
     top_p: float = 1.0,
     ffn: Optional[Callable] = None,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """Sampled generation under the JAX package's name and defaults. JAX
-    compiles it as one program; here the prefill, then one replay of the
-    captured step a token, with no host read before the result."""
+    compiles it as one program (on a mesh, one SPMD program); here the
+    prefill, then one replay of the captured step a token, with no host
+    read before the result."""
     return generate(
-        params, prompt, config, max_new_tokens, temperature, generator, top_k, top_p, ffn
+        params, prompt, config, max_new_tokens, temperature, generator, top_k, top_p, ffn,
+        mesh=mesh,
     )
 
 

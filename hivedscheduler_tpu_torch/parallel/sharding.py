@@ -36,6 +36,13 @@ local tensors (``DTensor.to_local``):
   head) gets its gradient only on the stages that use it, and
   :func:`reduce_gradients` sums it over pp.
 
+The collectives go through ``torch.distributed._functional_collectives``,
+whose NCCL calls a CUDA graph captures and replays (``chip_smoke.py``
+phase 8 replays them captured on fresh inputs): the decode step on a mesh
+runs from a captured graph with its collectives inside
+(``models/generate.py``). A rank must then make the same collectives in
+the same order as its peers at capture and at every replay.
+
 A mesh is *active* when a process group exists (:func:`is_active`): then
 the model runs this sharded code. A collective over an axis of one rank is
 the identity and is skipped, as GSPMD emits none, so a one-rank mesh runs

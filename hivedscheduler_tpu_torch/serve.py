@@ -19,8 +19,9 @@ with ``--ckpt`` the linears are restored as the checkpoint's f32 values and
 quantized from those, as the JAX twin quantizes the masters it restores.
 Each request prints its time to first token (prefill + first sample), its
 decode rate, how many times the flash kernel launched, how many decode
-graphs it captured and in what time (on one card the decode steps replay
-``models/generate.py``'s captured step; the first request of a shape
+graphs it captured and in what time (on a card, alone or as a gang's
+rank, the decode steps replay ``models/generate.py``'s captured step,
+a rank's with its collectives inside; the first request of a shape
 captures it), the first new token of each of the rank's rows and, on a
 card, the peak memory.
 
@@ -161,10 +162,12 @@ def run_request(
     prefill plus the first sample, the decode rate counts the tokens after
     the first over the time after it. Host clock around device syncs. On an
     active ``mesh``, ``prompt`` is this rank's rows. ``ffn``: the MoE hook
-    (:func:`decode_hook`). On a card with no active mesh the decode steps
-    replay ``generate``'s captured graph (``plain``: the eager loop); a
-    request whose shape is new captures it, and the decode time includes
-    that capture, also given apart (``capture_ms``, ``captures``)."""
+    (:func:`decode_hook`). On a card, with an active mesh or without, the
+    decode steps replay ``generate``'s captured graph (``plain``: the eager
+    loop); a request whose shape is new captures it, and the decode time
+    includes that capture, also given apart (``capture_ms``,
+    ``captures``). On a gang every rank makes the same requests, so the
+    ranks capture together."""
     device = prompt.device
     launches0 = attention.flash_attention.launches
     captures0, capture_s0 = generate.Decoder.captures, generate.Decoder.capture_s

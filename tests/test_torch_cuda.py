@@ -415,3 +415,78 @@ def test_cuda_dropping_the_weights_frees_the_owner(cuda_device):
     assert freed >= weight_bytes + cache_bytes
     # What stays: cuBLAS workspaces of the capture's streams, kept by torch.
     assert torch.cuda.memory_allocated() - base < weight_bytes / 2
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A one-rank NCCL group and the 6-axis mesh over it (``chip_smoke.py``
+    phase 8's); the group is destroyed after the test."""
+    import torch.distributed as dist
+
+    from hivedscheduler_tpu_torch.parallel import mesh as pmesh
+
+    from ._multiproc import free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        yield pmesh.make_mesh(pmesh.MeshConfig(), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_collectives_captured_over_one_rank_replay_new_inputs(nccl_mesh):
+    # The model skips collectives over one rank, so only a direct call
+    # captures NCCL on one card: each replay must return its new input.
+    from hivedscheduler_tpu_torch.models import generate
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    x = torch.zeros(1000, device="cuda")
+
+    def collectives():
+        return torch.stack([sharding._all_gather(x, 0, nccl_mesh, "fsdp"),
+                            sharding._reduce_scatter(x, 0, nccl_mesh, "fsdp"),
+                            sharding._all_reduce(x, nccl_mesh, "tp"),
+                            sharding._all_reduce(x, nccl_mesh, "tp", "max")])
+
+    with torch.inference_mode():
+        replay, out = generate._capture(collectives, lambda: None)
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        for _ in range(3):
+            x.copy_(torch.randn(x.shape, device="cuda", generator=gen))
+            replay()
+            assert torch.equal(out, x.expand(4, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_captured_decode_on_a_one_rank_nccl_mesh(nccl_mesh, int8):
+    # The mesh's captured step against its eager loop and against one
+    # process's captured step on the same weights (phase 8 at test size):
+    # bf16, and int8 quantized on the mesh.
+    import dataclasses
+
+    from hivedscheduler_tpu_torch.models import generate, quantize, transformer
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    config = dataclasses.replace(transformer.tiny(), dtype=torch.bfloat16)
+    axes = transformer.logical_axes(config)
+    one = transformer.init(config, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    sharded = transformer.init_distributed(config, nccl_mesh,
+                                           torch.Generator(device="cuda").manual_seed(5), "cuda")
+    if int8:
+        one, sharded = quantize.quantize_params(one), quantize.quantize_params(sharded, axes)
+    prompt = torch.randint(0, config.vocab_size, (4, 256),
+                           generator=torch.Generator().manual_seed(6)).to("cuda")
+    want = generate.generate(one, prompt, config, 12)
+    local = sharding.shard_batch(prompt, nccl_mesh)
+    captures = generate.Decoder.captures
+    graph = generate.generate(sharded, local, config, 12, mesh=nccl_mesh)
+    assert generate.Decoder.captures == captures + 1
+    eager = generate.generate(sharded, local, config, 12, mesh=nccl_mesh, plain=True)
+    assert torch.equal(graph, eager) and torch.equal(graph, want)
+    again = generate.generate(sharded, local.flip(1), config, 12, mesh=nccl_mesh)
+    assert generate.Decoder.captures == captures + 1
+    assert torch.equal(again, generate.generate(sharded, local.flip(1), config, 12,
+                                                mesh=nccl_mesh, plain=True))

@@ -112,7 +112,7 @@ def rerun_capture(fn, restore):
 
 @pytest.fixture
 def owner_on_cpu(monkeypatch):
-    monkeypatch.setattr(TG, "_graphed", lambda x, mesh: True)
+    monkeypatch.setattr(TG, "_graphed", lambda x: True)
     monkeypatch.setattr(TG, "_capture", rerun_capture)
 
 
