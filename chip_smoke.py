@@ -62,18 +62,26 @@ neither the kernels line nor the last line, since no main path ran):
              both tok/s. Phases 6, 7 and 11 (b) do the same.
 5. train   - after serving's weights are freed. (a) a tiny f32 model (4/2
              heads, head_dim 32, S 256, remat "flash") takes 2 AdamW steps
-             on the card and 2 on the CPU from the same weights: the losses,
-             the step-1 gradients and the parameters must agree within
-             TRAIN_TOL. (b) Llama-3-8B at full width, depth cut to 8
-             layers, f32 master weights, bf16 compute,
-             remat "flash", batch 1 x 8192 tokens from --seed: 2 warm-up and
-             4 timed steps through the training entry point. Launch counts
-             are set to 0 before and read after; every step must launch the
-             forward, dK/dV and dQ kernels once a layer (the forward once,
-             not twice: the "flash" policy keeps its outputs). Losses must be
-             finite, the first near ln(vocab) + 0.5, the last below the
-             first. The parameters after the warm-up steps are copied to
-             the host for phase 8.
+             on the card (the first captures the step's CUDA graph, the
+             second replays it) and 2 on the CPU from the same weights: the
+             losses, the step-1 gradients and the parameters must agree
+             within TRAIN_TOL. (b) Llama-3-8B at full width, depth cut to 8
+             layers, f32 master weights, bf16 compute, capturable AdamW,
+             remat "flash", batch 1 x 8192 tokens from --seed: first 6
+             steps of the eager plain version (``train.train_step``), then
+             from the same seed 2 warm-up and 4 timed steps through the
+             training entry point, every step a replay of the graph the
+             first one captured (``train.captured_step``; the two trees do
+             not fit the card together). Launch counts are set to 0 before
+             and read after (a replay counts what its capture recorded);
+             every step must launch the forward, dK/dV and dQ kernels once
+             a layer (the forward once, not twice: the "flash" policy keeps
+             its outputs). Losses must be finite, the first near ln(vocab)
+             + 0.5, the last below the first; only the first step captures.
+             The train-graph gate: the captured losses and the final
+             parameters' digest (``train.tree_digest``) equal the eager
+             run's bit for bit. The parameters after the warm-up steps are
+             copied to the host for phase 8.
 6. workloads - the jobs as the scheduler launches them. A one-pod,
              one-card bind info and the pod's HIVED_TPU_ENV block go to the
              pod's launcher (``workloads/launch.py``), which starts this
@@ -87,7 +95,8 @@ neither the kernels line nor the last line, since no main path ran):
              saved with ``TrainCheckpointer`` into a temporary directory
              (bytes, write and read seconds printed) and restored into
              fresh parameters and a fresh AdamW, which must equal the live
-             ones bit for bit, as must one more step on each. Then the
+             ones bit for bit, as must one more captured step on each (the
+             live graph's replay, the restored state's first capture). Then the
              serving entry point (``serve.main --ckpt``) on that checkpoint,
              whose greedy tokens must equal ``serve.run_request``'s on the
              trainer's parameters cast to bf16, and ``serve.main --ckpt
@@ -95,7 +104,8 @@ neither the kernels line nor the last line, since no main path ran):
              ``quantize.quantize_params`` of the trainer's f32 masters (after
              a warm-up request on them), and so must the eager loop's; every
              prefill layer must launch the flash kernel.
-7. perf    - the perf harness (``models/perf.main``) with its decode,
+7. perf    - the perf harness (``models/perf.main``, its training steps
+             replayed from captured graphs) with its decode,
              long-context and zoo stages, its artifact in a temporary file:
              no error or rejected row and no zoo error dict, every MFU in
              (0, 1], finite losses, the artifact written, and the train
@@ -105,9 +115,11 @@ neither the kernels line nor the last line, since no main path ran):
              its BERT steps launch the forward twice a layer and each
              backward once, a step; its ResNet and decode launch none (the
              128-token prefill is shorter than the flash dispatch's 256, in
-             both packages, so it runs the plain attention). The harness's
-             model then serves the zoo's decode shape (8 x 128 x 32)
-             through ``serve.run_request``, graph against eager.
+             both packages, so it runs the plain attention). The
+             train-graph gate at the harness's model, seeds and shape (4
+             eager steps, then 4 captured from the same weights). The
+             harness's model then serves the zoo's decode shape (8 x 128 x
+             32) through ``serve.run_request``, graph against eager.
 8. sharded - a one-rank NCCL group (TCP store on 127.0.0.1) and the 6-axis
              mesh over it; NCCL's all-gather, reduce-scatter and all-reduce
              once each (the model skips collectives over one rank, so the
@@ -116,7 +128,8 @@ neither the kernels line nor the last line, since no main path ran):
              the decode step's capture (``generate._capture``) and
              replayed on fresh inputs, each output equal to its input: the
              one capture of NCCL a one-card run can show; phase 5's model, seed and
-             batch through the sharded step (``init_sharded``,
+             batch through the sharded step, eager, with phase 5's
+             capturable AdamW arithmetic (``init_sharded``,
              ``make_train_step``, ``shard_batch``), 2 warm-up steps whose
              losses and every leaf's bytes after them must equal phase 5's
              bit for bit, then 4 timed steps, each launching every kernel
@@ -172,7 +185,8 @@ neither the kernels line nor the last line, since no main path ran):
              TTFT, decode rate, ms a step against the rank's bound and peak
              memory a rank beside one card's. With one card, the summary
              records ``"nccl_ranks": 1``.
-9. longctx - the long-context twin (``workloads/train_longctx.py``) at
+9. longctx - the long-context twin (``workloads/train_longctx.py``, on one
+             card its steps from a captured graph) at
              Llama-3-8B's full width, depth cut to 2 layers, 3 steps of
              one 32768-token row from the twin's seeds (on one card sp is 1, so the
              kernels run at B1 S32768 H32). Every step must launch each
@@ -185,10 +199,13 @@ neither the kernels line nor the last line, since no main path ran):
              from the same weights, held within TRAIN_TOL; (b) BERT-large at
              its published size (24 layers, d 1024, 16 heads, vocab 30522,
              S512), f32 masters, bf16 compute, full remat, batch 8 x 512
-             with 15% masked, 2 warm-up and 4 timed steps on one fixed
-             batch: every step launches the forward kernel twice a layer
-             (48) and each backward kernel once (24), losses finite and
-             falling; step ms, tokens/s and peak memory printed.
+             with 15% masked: 6 eager steps, then from the same weights 2
+             warm-up and 4 timed steps of the twin's ``captured_step`` on
+             one fixed batch (the first captures): every step launches the
+             forward kernel twice a layer (48) and each backward kernel once
+             (24), losses finite and falling, the train-graph gate; step
+             ms, tokens/s and peak memory printed. (a)'s card steps go
+             through ``captured_step`` too, as do 11 (a)'s and 12 (a)'s.
 11. mixtral - after phase 10's weights are freed. (a) a small f32
              Mixtral (2 layers, d 128, 4 heads of 32, 2 KV heads, 4 experts,
              top-2, S256: it reaches the kernels, which Mixtral tiny's
@@ -210,11 +227,13 @@ neither the kernels line nor the last line, since no main path ran):
              (the same tokens, so the same capacity); TTFT, decode rate and
              peak memory printed. (c) the twin's job at every width, depth
              cut to 2 layers (3,164,688,384 parameters), 4 x 4096 tokens a
-             step from the twin's seeds, 2 warm-up and 4 timed steps: each
-             step launches the forward 4 times and each backward twice,
-             losses finite, the first within LOSS_BAND of ln(32000) + 0.5
-             + the aux term, the last below the first; step ms, tokens/s
-             and peak memory printed.
+             step from the twin's seeds, 2 warm-up and 4 timed steps, run
+             once with ``--plain`` (eager) and once captured: each
+             captured step launches the forward 4 times and each backward
+             twice, losses finite, the first within LOSS_BAND of ln(32000)
+             + 0.5 + the aux term, the last below the first, the
+             train-graph gate on the twin's summary line; step ms,
+             tokens/s and peak memory printed.
 12. zoo    - (a) a small f64 ResNet (width 16, 10 classes, batch 4 x 32^2)
              takes 2 SGD steps of the ResNet twin's step on the card and on
              the CPU from the same weights: the losses, the step-1
@@ -227,12 +246,20 @@ neither the kernels line nor the last line, since no main path ran):
              shape (32 x 224^2, 1000 classes, bf16), 2 warm-up and 4 timed
              steps (the reference's 20 cut to 6 for time): losses finite, the
              first within LOSS_BAND of ln(1000), the running stats moved
-             from (0, 1); step ms, images/s and peak memory printed. Not
-             gated on bitwise repeats: cuDNN's backward may use atomics. (c)
-             the MNIST twin (``workloads/train_mnist.py``) on the card: 100
-             steps, the last loss below the first, ``done`` printed.
+             from (0, 1); step ms, images/s and peak memory printed; run
+             first with ``--plain`` (eager), then captured, the
+             train-graph gate on the summaries' losses and digests
+             (parameters and running stats). (c) the MNIST twin
+             (``workloads/train_mnist.py``) on the card: 100 steps, the
+             last loss below the first, ``done`` printed; then its steps
+             from its seeds eagerly and captured in this process, the
+             captured losses = the twin's, the train-graph gate.
 
-Each phase logs its seconds. The lines before the last are nvidia-smi's
+Each train-graph gate prints a ``[train_graph]`` line: the model, capture
+ms, captures and replays, captured and eager ms a step, peak GiB of each,
+the losses of each, whether they and the digests are equal, and with
+``--profile`` the captured step's idle share (phases 5, 7, 10, 11 (c), 12
+(b) and (c)). Each phase logs its seconds. The lines before the last are nvidia-smi's
 name and power limit, then one JSON object with each kernel's numbers (its
 ``launches_by_path``: serve, train, workloads, perf, sharded, longctx,
 bert, mixtral, zoo: the perf harness's zoo stage with phase 12); the last
@@ -406,6 +433,9 @@ MIXTRAL_TRAIN = {"layers": 2, "warmup": 2, "timed": 4}
 RESNET_SMALL = {"config": dict(num_classes=10, width=16), "batch": 4, "size": 32, "steps": 2}
 RESNET = {"batch": 32, "size": 224, "warmup": 2, "timed": 4}
 RESNET_GANG = {"batch": 32, "steps": 3}
+# Phase 7's train-graph gate at the perf harness's model: steps of each run
+# (the captured run's first captures, the rest replay).
+PERF_GRAPH_STEPS = 4
 
 
 def log(phase: str, **fields) -> None:
@@ -1021,13 +1051,24 @@ def phase_train(seed: int, profile: bool) -> dict:
     log("train", step="tiny_card_vs_cpu", **fields)
     del card_params, cpu_params
 
-    # (b) Llama-3-8B widths, depth cut to 8 layers, through the entry point.
+    # (b) Llama-3-8B widths, depth cut to 8 layers, through the entry point:
+    # first the eager plain version from the same seed and batch, whose
+    # losses and final digest the captured steps must repeat (two trees of
+    # 8 layers and their AdamW do not fit the card together).
+    steps = TRAIN["warmup"] + TRAIN["timed"]
+    config, params = entry.build(TRAIN["model"], seed, "cuda", TRAIN["layers"],
+                                 TRAIN["remat_policy"])
+    tokens = torch.from_numpy(synthetic_tokens(np.random.default_rng(seed + 1), TRAIN["batch"],
+                                               TRAIN["seq"], config.vocab_size)).cuda()
+    optimizer = train.make_optimizer(params)
+    eager = run_steps(lambda: train.train_step(params, optimizer, tokens, config),
+                      lambda: params, steps)
+    del params, optimizer
+    _free_card()
     t0 = time.perf_counter()
     config, params = entry.build(TRAIN["model"], seed, "cuda", TRAIN["layers"],
                                  TRAIN["remat_policy"])
     n_param = perf.n_params(params)
-    tokens = torch.from_numpy(synthetic_tokens(np.random.default_rng(seed + 1), TRAIN["batch"],
-                                               TRAIN["seq"], config.vocab_size)).cuda()
     torch.cuda.synchronize()
     log("train", step="init", model=TRAIN["model"], n_layers=config.n_layers,
         d_model=config.d_model, n_params=n_param, seconds=time.perf_counter() - t0,
@@ -1035,6 +1076,7 @@ def phase_train(seed: int, profile: bool) -> dict:
     optimizer = train.make_optimizer(params)
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
+    _reset_train_graph_counts()
     recs = list(entry.run(params, config, tokens, TRAIN["warmup"], optimizer=optimizer))
     # Phase 8's reference: every leaf's bytes after the warm-up steps, on
     # the host (the card does not hold a second 8-layer AdamW state).
@@ -1059,6 +1101,9 @@ def phase_train(seed: int, profile: bool) -> dict:
                 f"train step {r['step']} launched {r['launches']}; each kernel must launch "
                 f"{config.n_layers} times (the forward once a layer under remat 'flash')"
             )
+    if [r["captured"] for r in recs] != [True] + [False] * (len(recs) - 1):
+        raise AssertionError(f"captures by step: {[r['captured'] for r in recs]}; only the "
+                             "first step may capture")
     timed = recs[TRAIN["warmup"]:]
     step_ms = sum(r["step_ms"] for r in timed) / len(timed)
     tok_s = TRAIN["batch"] * TRAIN["seq"] / (step_ms * 1e-3)
@@ -1068,10 +1113,13 @@ def phase_train(seed: int, profile: bool) -> dict:
                "flops_per_token": flops_tok, "bf16_peak_share": flops_tok * tok_s / perf.H100_BF16_FLOPS,
                "peak_memory_gib": peak_gib, "launches": launches}
     log("train", step="summary", **{k: v for k, v in summary.items() if k != "losses"})
-    if profile:
-        profile_train_step(params, optimizer, tokens, config, step_ms)
+    captured = {"losses": losses, "step_ms": [r["step_ms"] for r in recs],
+                "digest": train.tree_digest(params), "peak_gib": peak_gib}
+    check_train_graph("llama3_8b_8_layers", eager, captured, TRAIN["warmup"],
+                      profile and (lambda: profile_train_step(params, optimizer, tokens, config,
+                                                              step_ms)))
     del params, optimizer, tokens
-    torch.cuda.empty_cache()
+    _free_card()
     return {**summary, "after_warmup": after_warmup}
 
 
@@ -1098,6 +1146,85 @@ def _reset_graph_counts() -> None:
 
     generate.Decoder.captures = generate.Decoder.replays = 0
     generate.Decoder.capture_s = 0.0
+
+
+def _reset_train_graph_counts() -> None:
+    from hivedscheduler_tpu_torch.models import train
+
+    train.StepGraphs.captures = train.StepGraphs.replays = 0
+    train.StepGraphs.capture_s = 0.0
+
+
+def _free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_steps(step, tree, steps: int) -> dict:
+    """``steps`` calls of ``step()`` (one training step; returns its loss),
+    each timed on the host clock around a device sync, then the digest of
+    ``tree()`` after them (``models/train.tree_digest``, taken on the
+    card) and the peak memory: one side of a phase's train-graph gate."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import train
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "step_ms": step_ms, "digest": train.tree_digest(tree()),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def check_train_graph(model: str, eager: dict, captured: dict, timed_from: int = 1,
+                      profile=None) -> dict:
+    """The train-graph gate of one model: over the phase's steps, the
+    captured run's losses and the digest of its final parameters (and
+    state) equal the eager run's bit for bit (the two run one after the
+    other from the same seed: at 8B widths two trees do not fit), with one
+    capture, made at the first step; ``timed_from`` on, every step is a
+    replay. ``eager`` and ``captured`` are ``run_steps``'s fields (the
+    captured run's step ms from ``timed_from`` on are the replays'; the
+    eager run's from 1 on, its first step paying the lazy set-up).
+    The graphs' counts are this process's (``StepGraphs``) unless
+    ``captured["graph"]`` gives them (a launched child's). ``profile()``,
+    when given, profiles one more captured step and returns its idle
+    share. Logs the ``train_graph`` line and returns its fields."""
+    from hivedscheduler_tpu_torch.models import train
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    graph = captured.get("graph") or {
+        "captures": train.StepGraphs.captures, "replays": train.StepGraphs.replays,
+        "capture_ms": train.StepGraphs.capture_s * 1e3}
+    captured_ms = mean(captured["step_ms"][timed_from:])
+    eager_ms = mean(eager["step_ms"][1:])
+    fields = {
+        "model": model, "steps": len(captured["losses"]), **graph,
+        "captured_ms_step": captured_ms, "eager_ms_step": eager_ms,
+        "speedup": eager_ms / captured_ms, "peak_gib": captured["peak_gib"],
+        "eager_peak_gib": eager["peak_gib"],
+        "losses_equal": captured["losses"] == eager["losses"],
+        "digest_equal": captured["digest"] == eager["digest"],
+        "losses": captured["losses"], "eager_losses": eager["losses"],
+    }
+    if not (fields["losses_equal"] and fields["digest_equal"]):
+        raise AssertionError(f"{model}: the captured steps differ from the eager steps: {fields}")
+    if (graph["captures"], graph["replays"]) != (1, len(captured["losses"]) - 1):
+        raise AssertionError(f"{model}: {graph['captures']} captures and {graph['replays']} "
+                             "replays: one capture, at the first step, then replays")
+    fields["idle_share"] = profile() if profile else None
+    log("train_graph", **fields)
+    return fields
 
 
 def decode_bound(params, config, batch: int, s_max: int, mesh=None) -> dict:
@@ -1305,8 +1432,14 @@ def workloads_job(seed: int, workdir: str) -> dict:
         raise AssertionError("restored parameters or AdamW state differ from the saved ones")
     batch = torch.from_numpy(
         TokenFileDataset(data, WORKLOAD["seq"] - 1, np.uint32).gather([0])).cuda()
-    live_loss = train.train_step(job.params, job.optimizer, batch, job.config, batch.device)
-    rest_loss = train.train_step(fresh, fresh_opt, batch, job.config, batch.device)
+    # The captured step on each: the live trainer's graph replays, the
+    # restored state's owner warms up and captures (its AdamW's step count
+    # came back onto the card from the checkpoint).
+    captures = train.StepGraphs.captures
+    live_loss = train.captured_step(job.params, job.optimizer, batch, job.config)
+    rest_loss = train.captured_step(fresh, fresh_opt, batch, job.config)
+    if train.StepGraphs.captures != captures + 1:
+        raise AssertionError("the live trainer's step after the save did not replay its graph")
     if not (torch.equal(live_loss, rest_loss) and _tree_equal(job.params, fresh)):
         raise AssertionError(f"a step after resume differs: loss {live_loss.item()} live, "
                              f"{rest_loss.item()} restored")
@@ -1419,7 +1552,34 @@ def phase_perf(profile: bool) -> tuple:
             raise AssertionError("perf's artifact holds no zoo rows")
         log("perf", step="zoo", **zoo)
         log("perf", seconds=seconds, launches=launches, zoo_launches=zoo_launches,
-            artifact_keys=sorted(artifact))
+            artifact_keys=sorted(artifact), capture_ms=result["capture_ms"])
+        # The train-graph gate at the harness's model, seeds and shape: the
+        # eager steps, then the captured ones, from the same weights.
+        config, batch, seq = perf.bench_config(True)
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, config.vocab_size, size=(batch, seq))).cuda()
+        runs = {}
+        for plain in (True, False):
+            _reset_train_graph_counts()
+            params = transformer.init(config, torch.Generator(device="cuda").manual_seed(0),
+                                      "cuda", dtype=torch.float32)
+            optimizer = train.make_optimizer(params)
+            step = train.train_step if plain else train.captured_step
+            runs[plain] = run_steps(lambda: step(params, optimizer, tokens, config),
+                                    lambda: params, PERF_GRAPH_STEPS)
+            if plain:
+                del params, optimizer
+                _free_card()
+        fields = check_train_graph(
+            "perf_" + os.environ.get("HIVED_PERF_MODEL", "268m"), runs[True], runs[False],
+            profile=profile and (lambda: profile_train_step(
+                params, optimizer, tokens, config, result["step_time_ms"],
+                window="perf_train_step")))
+        log("perf", step="train_graph", harness_step_ms=result["step_time_ms"],
+            harness_capture_ms=result["capture_ms"], mfu=result.get("mfu"),
+            gate_captured_ms_step=fields["captured_ms_step"])
+        del params, optimizer, tokens
+        _free_card()
         # The harness's decode (its model and weights, the zoo's batch 8
         # after 128 tokens, 32 new) through the serving entry point: a
         # warm-up that captures, a timed request, the eager loop's tokens.
@@ -1432,19 +1592,6 @@ def phase_perf(profile: bool) -> tuple:
         res = serve.run_request(params, prompt, config, 32)
         check_decode_graph("perf", params, config, prompt, 32, res, warm["capture_ms"])
         del params
-        if profile:
-            # The harness's training step again (its model, seeds and
-            # shape), two warm-up steps, then one under the profiler.
-            config, batch, seq = perf.bench_config(True)
-            params = transformer.init(config, torch.Generator(device="cuda").manual_seed(0),
-                                      "cuda", dtype=torch.float32)
-            optimizer = train.make_optimizer(params)
-            tokens = torch.from_numpy(np.random.default_rng(1).integers(
-                0, config.vocab_size, size=(batch, seq))).cuda()
-            for _ in range(2):
-                train.train_step(params, optimizer, tokens, config)
-            profile_train_step(params, optimizer, tokens, config, result["step_time_ms"],
-                               window="perf_train_step")
         return {k: launches[k] - zoo_launches[k] for k in launches}, zoo_launches
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1527,7 +1674,10 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
         config = dataclasses.replace(transformer.llama3_8b(), n_layers=TRAIN["layers"],
                                      remat=True, remat_policy=TRAIN["remat_policy"])
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        params, optimizer = train.init_sharded(config, mesh, gen, "cuda")
+        # A gang's DTensor AdamW keeps its step count on the host; this one
+        # is asked for phase 5's capturable arithmetic (the step count and
+        # bias corrections on the card), which the bitwise gate compares.
+        params, optimizer = train.init_sharded(config, mesh, gen, "cuda", capturable_step=True)
         tokens = torch.from_numpy(serve.synthetic_tokens(
             np.random.default_rng(seed + 1), TRAIN["batch"], TRAIN["seq"], config.vocab_size))
         tokens = sharding.shard_batch(tokens, mesh).cuda()
@@ -2097,7 +2247,7 @@ def phase_bert(seed: int, profile: bool) -> dict:
     import numpy as np
     import torch
 
-    from hivedscheduler_tpu_torch.models import bert, convert, perf
+    from hivedscheduler_tpu_torch.models import bert, convert, perf, train
     from hivedscheduler_tpu_torch.ops import attention as A
     from hivedscheduler_tpu_torch.workloads import train_bert
 
@@ -2110,30 +2260,38 @@ def phase_bert(seed: int, profile: bool) -> dict:
                                               config.max_seq_len, config.vocab_size)
     small_card_vs_cpu(
         "bert", cpu_params, card_params, train_bert.make_optimizer,
-        lambda params, opt, device: train_bert.train_step(params, opt, tokens.to(device),
-                                                          targets.to(device), config),
+        lambda params, opt, device: train_bert.captured_step(params, opt, tokens.to(device),
+                                                             targets.to(device), config),
         BERT_SMALL["steps"], remat_launches(config.n_layers))
     del card_params, cpu_params
 
-    # (b) BERT-large, nothing cut, on one fixed masked batch.
-    t0 = time.perf_counter()
+    # (b) BERT-large, nothing cut, on one fixed masked batch: the eager plain
+    # version first, then the captured steps from the same weights.
     config = bert.bert_large()
-    params = bert.init(config, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-    optimizer = train_bert.make_optimizer(params)
     tokens, targets = train_bert.masked_batch(np.random.default_rng(seed + 6), BERT_LARGE["batch"],
                                               train_bert.SEQ, config.vocab_size)
     tokens, targets = tokens.cuda(), targets.cuda()
+    params = bert.init(config, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    optimizer = train_bert.make_optimizer(params)
+    eager = run_steps(lambda: train_bert.train_step(params, optimizer, tokens, targets, config),
+                      lambda: params, BERT_LARGE["warmup"] + BERT_LARGE["timed"])
+    del params, optimizer
+    _free_card()
+    t0 = time.perf_counter()
+    params = bert.init(config, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    optimizer = train_bert.make_optimizer(params)
     torch.cuda.synchronize()
     log("bert", step="init", n_layers=config.n_layers, d_model=config.d_model,
         n_params=perf.n_params(params), seconds=time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
+    _reset_train_graph_counts()
     recs = []
     for i in range(BERT_LARGE["warmup"] + BERT_LARGE["timed"]):
         before = A.kernel_launches()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        loss = float(train_bert.train_step(params, optimizer, tokens, targets, config))
+        loss = float(train_bert.captured_step(params, optimizer, tokens, targets, config))
         step_ms = (time.perf_counter() - t1) * 1e3
         after = A.kernel_launches()
         recs.append({"loss": loss, "step_ms": step_ms,
@@ -2152,14 +2310,19 @@ def phase_bert(seed: int, profile: bool) -> dict:
             raise AssertionError(f"BERT-large step launched {r['launches']}, not {want}")
     timed = [r["step_ms"] for r in recs[BERT_LARGE["warmup"]:]]
     step_ms = sum(timed) / len(timed)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log("bert", step="summary", **BERT_LARGE, losses=losses, step_ms=timed, step_ms_mean=step_ms,
         tokens_per_s=BERT_LARGE["batch"] * train_bert.SEQ / (step_ms * 1e-3),
-        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
-    if profile:
-        profile_step(lambda: train_bert.train_step(params, optimizer, tokens, targets, config),
-                     step_ms, "bert_step")
+        peak_memory_gib=peak_gib, launches=launches)
+    captured = {"losses": losses, "step_ms": [r["step_ms"] for r in recs],
+                "digest": train.tree_digest(params), "peak_gib": peak_gib}
+    check_train_graph(
+        "bert_large", eager, captured, BERT_LARGE["warmup"],
+        profile and (lambda: profile_step(
+            lambda: train_bert.captured_step(params, optimizer, tokens, targets, config),
+            step_ms, "bert_step")))
     del params, optimizer
-    torch.cuda.empty_cache()
+    _free_card()
     return launches
 
 
@@ -2169,6 +2332,9 @@ def phase_mixtral(seed: int, profile: bool) -> dict:
     layers; (c) the twin's job at 2 layers. With ``profile``, device time
     by kernel over one more request and one more step. Returns each
     kernel's launches in (b) and (c)."""
+    import contextlib
+    import io
+
     import numpy as np
     import torch
 
@@ -2188,8 +2354,8 @@ def phase_mixtral(seed: int, profile: bool) -> dict:
                                                      config.vocab_size))
     small_card_vs_cpu(
         "mixtral", cpu_params, card_params, train_mixtral.make_optimizer,
-        lambda params, opt, device: train_mixtral.train_step(params, opt, tokens.to(device),
-                                                             config),
+        lambda params, opt, device: train_mixtral.captured_step(params, opt, tokens.to(device),
+                                                                config),
         sm["steps"], remat_launches(config.n_layers))
     ffn = mixtral.decode_ffn(config)
     new = [generate.generate(params, tokens.to(device), config, sm["new_tokens"],
@@ -2259,14 +2425,27 @@ def phase_mixtral(seed: int, profile: bool) -> dict:
     del params, last, full
     torch.cuda.empty_cache()
 
-    # (c) The twin's job, 2 layers at every width.
+    # (c) The twin's job, 2 layers at every width: its eager plain version
+    # (--plain), then the captured steps from the same seeds (one tree and
+    # its AdamW is 50.6 GB).
     tr = MIXTRAL_TRAIN
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launches()
-    recs = train_mixtral.main(["--layers", str(tr["layers"]),
-                               "--steps", str(tr["warmup"] + tr["timed"])])
+    argv = ["--layers", str(tr["layers"]), "--steps", str(tr["warmup"] + tr["timed"])]
+    runs = {}
+    for plain in (True, False):
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        _reset_train_graph_counts()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            recs = train_mixtral.main(argv + ["--plain"] * plain)
+        print(printed.getvalue(), end="", flush=True)
+        summary = json.loads(printed.getvalue().split("mixtral summary ", 1)[1].splitlines()[0])
+        runs[plain] = {"losses": summary["losses"], "step_ms": [r["step_ms"] for r in recs],
+                       "digest": summary["params_digest"],
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     train_launches = A.kernel_launches()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = runs[False]["peak_gib"]
     losses = [r["loss"] for r in recs]
     base = mixtral.mixtral_8x7b()
     if not all(np.isfinite(losses)):
@@ -2288,19 +2467,23 @@ def phase_mixtral(seed: int, profile: bool) -> dict:
         step_ms=timed, step_ms_mean=step_ms,
         tokens_per_s=rows * train_mixtral.SEQ / (step_ms * 1e-3), peak_memory_gib=peak_gib,
         launches=train_launches)
-    if profile:
+    _free_card()
+
+    def profile_mixtral():
         config = dataclasses.replace(base, n_layers=tr["layers"])
         params = mixtral.init(config, torch.Generator(device="cuda").manual_seed(seed), "cuda",
                               torch.float32)
         optimizer = train_mixtral.make_optimizer(params)
         tokens = torch.from_numpy(serve.synthetic_tokens(
             np.random.default_rng(seed + 9), rows, train_mixtral.SEQ, base.vocab_size)).cuda()
-        for _ in range(2):  # warm-up
-            float(train_mixtral.train_step(params, optimizer, tokens, config))
-        profile_step(lambda: train_mixtral.train_step(params, optimizer, tokens, config),
-                     step_ms, "mixtral_step")
-        del params, optimizer
-    torch.cuda.empty_cache()
+        for _ in range(2):  # the capture, then a replay
+            float(train_mixtral.captured_step(params, optimizer, tokens, config))
+        return profile_step(lambda: train_mixtral.captured_step(params, optimizer, tokens, config),
+                            step_ms, "mixtral_step")
+
+    check_train_graph("mixtral_8x7b_2_layers", runs[True], runs[False], tr["warmup"],
+                      profile and profile_mixtral)
+    _free_card()
     return {k: serve_launches[k] + train_launches[k] for k in train_launches}
 
 
@@ -2333,8 +2516,9 @@ def phase_zoo(seed: int, profile: bool) -> dict:
     images = images.double()
 
     def step(p, opt, device):
-        loss, side[device][1] = train_resnet.train_step(p, side[device][1], opt, images.to(device),
-                                                        labels.to(device), config)
+        loss, side[device][1] = train_resnet.captured_step(p, side[device][1], opt,
+                                                           images.to(device), labels.to(device),
+                                                           config)
         return loss
 
     small_card_vs_cpu("zoo", side["cpu"][0], side["cuda"][0], train_resnet.make_optimizer, step,
@@ -2348,17 +2532,24 @@ def phase_zoo(seed: int, profile: bool) -> dict:
         largest=max(c.abs().max().item() for c, _ in pairs), tol=TRAIN_TOL["stats_max_rel"])
     del side
 
-    # (b) The ResNet-50 twin through the pod's launcher, one card.
+    # (b) The ResNet-50 twin through the pod's launcher, one card: its eager
+    # plain version (--plain), then the captured steps from the same seeds.
     rn = RESNET
-    out = launch_pod("hivedscheduler_tpu_torch.workloads.train_resnet",
-                     ["--batch", str(rn["batch"]), "--image-size", str(rn["size"]),
-                      "--steps", str(rn["warmup"] + rn["timed"])], 1)
-    steps = [m.groups() for m in _TWIN_STEP.finditer(out)]
-    summary = resnet_summaries(out)
+    runs = {}
+    for plain in (True, False):
+        out = launch_pod("hivedscheduler_tpu_torch.workloads.train_resnet",
+                         ["--batch", str(rn["batch"]), "--image-size", str(rn["size"]),
+                          "--steps", str(rn["warmup"] + rn["timed"])] + ["--plain"] * plain, 1)
+        steps = [m.groups() for m in _TWIN_STEP.finditer(out)]
+        summary = resnet_summaries(out)
+        if len(steps) != rn["warmup"] + rn["timed"] or len(summary) != 1:
+            raise AssertionError(f"the ResNet twin printed {len(steps)} steps and "
+                                 f"{len(summary)} summaries")
+        runs[plain] = {"losses": summary[0]["losses"],
+                       "step_ms": [float(st[2]) for st in steps],
+                       "digest": (summary[0]["params_digest"], summary[0]["bn_stats_digest"]),
+                       "peak_gib": summary[0]["peak_memory_gib"], "graph": summary[0]["graph"]}
     losses = [float(st[1]) for st in steps]
-    if len(steps) != rn["warmup"] + rn["timed"] or len(summary) != 1:
-        raise AssertionError(f"the ResNet twin printed {len(steps)} steps and "
-                             f"{len(summary)} summaries")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite ResNet loss: {losses}")
     if abs(losses[0] - np.log(1000)) > LOSS_BAND:
@@ -2368,27 +2559,32 @@ def phase_zoo(seed: int, profile: bool) -> dict:
     timed = [float(st[2]) for st in steps[rn["warmup"]:]]
     step_ms = sum(timed) / len(timed)
     log("zoo", step="resnet50", **rn, losses=losses, step_ms=timed, step_ms_mean=step_ms,
-        images_per_s=rn["batch"] / (step_ms * 1e-3), **summary[0])
-    if profile:
+        images_per_s=rn["batch"] / (step_ms * 1e-3),
+        **{k: v for k, v in summary[0].items() if k not in ("losses", "graph")})
+
+    def profile_resnet():
+        # The twin's model, seeds and first batch in this process: the
+        # capture, a replay, then one replay under the profiler.
         config = resnet.ResNetConfig()
         params, stats = resnet.init(config, torch.Generator(device="cuda").manual_seed(0), "cuda")
         optimizer = train_resnet.make_optimizer(params)
         images, labels = (t.cuda() for t in train_resnet.synthetic_batch(
             np.random.default_rng(1), rn["batch"], rn["size"], config.num_classes))
-        state = {"stats": stats}
 
         def resnet_step():
-            loss, state["stats"] = train_resnet.train_step(params, state["stats"], optimizer,
-                                                           images, labels, config)
-            return loss
+            return train_resnet.captured_step(params, stats, optimizer, images, labels,
+                                              config)[0]
 
-        for _ in range(2):  # warm-up
+        for _ in range(2):
             float(resnet_step())
-        profile_step(resnet_step, step_ms, "resnet50_step")
-        del params, optimizer, state
-        torch.cuda.empty_cache()
+        return profile_step(resnet_step, step_ms, "resnet50_step")
 
-    # (c) The MNIST twin on the card.
+    check_train_graph("resnet50", runs[True], runs[False], rn["warmup"],
+                      profile and profile_resnet)
+    _free_card()
+
+    # (c) The MNIST twin on the card (its steps replay one captured graph),
+    # then the gate: the twin's steps from its seeds, eager and captured.
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         losses = train_mnist.main([])
@@ -2396,6 +2592,19 @@ def phase_zoo(seed: int, profile: bool) -> dict:
     if not (printed.getvalue().splitlines()[-1] == "done" and losses[-1] < losses[0]):
         raise AssertionError(f"MNIST: losses {losses[0]} -> {losses[-1]}")
     log("zoo", step="mnist", steps=len(losses), first_loss=losses[0], last_loss=losses[-1])
+    runs = {}
+    for plain in (True, False):
+        _reset_train_graph_counts()
+        rng = np.random.default_rng(0)  # main's weights, then its data
+        params = {k: torch.from_numpy(v).cuda() for k, v in train_mnist.init(rng).items()}
+        x, y = (torch.from_numpy(a).cuda() for a in train_mnist.synthetic_data(rng))
+        optimizer = train_mnist.make_optimizer(params)
+        step = train_mnist.train_step if plain else train_mnist.captured_step
+        runs[plain] = run_steps(lambda: step(params, optimizer, x, y), lambda: params,
+                                len(losses))
+    if runs[False]["losses"] != losses:
+        raise AssertionError("the MNIST twin's losses differ from its own steps' replayed")
+    check_train_graph("mnist_mlp", runs[True], runs[False])
     launches = A.kernel_launches()
     if set(launches.values()) != {0}:
         raise AssertionError(f"the zoo's ResNet and MNIST launched {launches}")
@@ -2423,18 +2632,21 @@ def port_kernel_rows(rows) -> list:
 
 
 def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float,
-                       window: str = "train_step", mesh=None) -> None:
-    """Device time by kernel over one training step (sharded on ``mesh``);
-    the idle share is taken against the mean unprofiled step time."""
+                       window: str = "train_step", mesh=None) -> float:
+    """Device time by kernel over one training step (sharded on ``mesh``,
+    eager there; on one card a replay of the captured step); the idle share
+    (returned) is taken against the mean unprofiled step time."""
     from hivedscheduler_tpu_torch.models import train
 
-    profile_step(lambda: train.train_step(params, optimizer, tokens, config, tokens.device, mesh),
-                 unprofiled_ms, window)
+    return profile_step(lambda: train.captured_step(params, optimizer, tokens, config,
+                                                    tokens.device, mesh),
+                        unprofiled_ms, window)
 
 
-def profile_step(step, unprofiled_ms: float, window: str) -> None:
+def profile_step(step, unprofiled_ms: float, window: str) -> float:
     """Device time by kernel over one call of ``step`` (a training step that
-    returns its loss); the idle share is taken against ``unprofiled_ms``."""
+    returns its loss); the idle share (returned) is taken against
+    ``unprofiled_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2443,11 +2655,13 @@ def profile_step(step, unprofiled_ms: float, window: str) -> None:
         torch.cuda.synchronize()
     rows = device_time_rows(prof)
     busy_ms = sum(r[0] for r in rows)
+    idle = 1 - busy_ms / unprofiled_ms
     log("profile", window=window, wall_ms_unprofiled=unprofiled_ms,
-        device_busy_ms=busy_ms, idle_share=1 - busy_ms / unprofiled_ms,
+        device_busy_ms=busy_ms, idle_share=idle,
         kernel_launches=sum(r[2] for r in rows),
         top=[{"kernel": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:14]],
         port_kernels=port_kernel_rows(rows))
+    return idle
 
 
 def profile_request(params, prompt, config, unprofiled: dict, new_tokens: int = SERVE["new_tokens"],

@@ -13,7 +13,9 @@ hand-written flash-attention forward, KV-cache decode from a CUDA graph
 captured once a shape, int8 linears;
 ``python -m hivedscheduler_tpu_torch.serve``), the single-device training
 step (AdamW on f32 master weights, bf16 compute, remat, the hand-written
-flash-attention backward; ``python -m hivedscheduler_tpu_torch.train``),
+flash-attention backward; on one card every training step of every model
+replays a CUDA graph captured once a batch shape, ``models/train.py``'s
+``step_graphs``; ``python -m hivedscheduler_tpu_torch.train``),
 and what a job placed by the scheduler needs around them: the boot from
 the scheduler's env block and its card grant (``workloads/``,
 ``parallel/mesh.py``), token files with prefetch to the card

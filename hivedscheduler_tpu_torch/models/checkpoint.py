@@ -122,8 +122,12 @@ class TrainCheckpointer:
         """Load step ``step`` (default: the latest) into ``params_like``
         (in place, in its dtypes) and ``optimizer`` (its state built anew
         from the checkpoint: each state tensor shaped and placed like its
-        parameter, scalars such as AdamW's ``step`` on the CPU, as torch
-        keeps them). Returns (params, optimizer, step)."""
+        parameter, scalars such as AdamW's ``step`` read on the CPU, where
+        torch keeps them, and moved to the parameter's card in f32 by
+        ``load_state_dict`` for a capturable AdamW, whichever kind wrote
+        the step). Returns (params, optimizer, step). A captured step's
+        owner of ``optimizer`` is dropped by the load
+        (``models/train.step_graphs``): the next step captures anew."""
         step, path = self._resolve(step)
         params = [p for g in optimizer.param_groups for p in g["params"]]
         metadata = dcp.FileSystemReader(path).read_metadata().state_dict_metadata

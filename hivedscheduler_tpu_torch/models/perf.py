@@ -4,7 +4,9 @@ step, flash vs plain attention, long-context steps and the decode sweep.
 Counterpart of ``hivedscheduler_tpu/models/perf.py``. It runs a Llama-style
 model's whole training step (forward, backward, AdamW) on one card and
 reports tokens/s and model-FLOPs utilisation against the card's dense bf16
-peak, then a flash-vs-plain attention fwd+bwd at 8k tokens; optional
+peak (each step replayed from the CUDA graph its first warm-up step
+captured, ``train.captured_step``; ``capture_ms`` is that capture's time),
+then a flash-vs-plain attention fwd+bwd at 8k tokens; optional
 stages (``HIVED_PERF_LONGCTX=1``, ``HIVED_PERF_DECODE=1``) add train-step
 rows at 16k and 32k tokens and a decode-throughput sweep, and
 ``HIVED_PERF_ZOO=1`` times the model zoo's steps on the card (BERT-large,
@@ -173,9 +175,10 @@ def _launches_since(before: dict) -> dict:
 def bench_train_step(on_gpu: bool, batch: Optional[int] = None,
                      seq: Optional[int] = None) -> dict:
     """The bench model's training step: f32 master weights from seed 0,
-    tokens from seed 1, two warm-up steps, then the mean of 8 timed steps
-    (3 off the card). ``launches`` counts each kernel over the timed
-    steps."""
+    tokens from seed 1, two warm-up steps (the first captures the step's
+    graph on the card), then the mean of 8 timed steps (3 off the card),
+    each a replay. ``launches`` counts each kernel over the timed steps;
+    ``capture_ms`` is the capture's time (0 off the card)."""
     config, batch, seq = bench_config(on_gpu, batch=batch, seq=seq)
     device = _device(on_gpu)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -187,10 +190,12 @@ def bench_train_step(on_gpu: bool, batch: Optional[int] = None,
     ).to(device)
 
     def step():
-        return train.train_step(params, optimizer, tokens, config, device)
+        return train.captured_step(params, optimizer, tokens, config, device)
 
+    capture_s = train.StepGraphs.capture_s
     step()
     warm_loss = host_sync(step())
+    capture_s = train.StepGraphs.capture_s - capture_s
     n_steps = 8 if on_gpu else 3
     before = att.kernel_launches()
     t0 = time.perf_counter()
@@ -208,6 +213,7 @@ def bench_train_step(on_gpu: bool, batch: Optional[int] = None,
         "flops_per_token": flops_per_token(config, n_param, seq),
         "loss": round(final_loss, 4) if math.isfinite(final_loss) else None,
         "launches": _launches_since(before),
+        "capture_ms": round(capture_s * 1e3, 1),
     }
     if not math.isfinite(final_loss):
         # Keep the JSON strict (no bare NaN) and show the divergence.
@@ -398,7 +404,8 @@ def bench_zoo(on_gpu: bool) -> dict:
     same cost. ``launches`` counts each kernel by stage over its warm-up and
     timed calls (the BERT step runs all three; the 128-token prefill is
     shorter than the flash dispatch's 256 and runs the plain attention, in
-    both packages)."""
+    both packages). The BERT and ResNet steps are their twins'
+    ``captured_step``: the warm-up captures, the timed calls replay."""
     from ..workloads import train_bert, train_resnet
     from . import bert, resnet
 
@@ -420,8 +427,9 @@ def bench_zoo(on_gpu: bool) -> dict:
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, bconfig.vocab_size, size=(bbatch, bseq))).to(device)
     mask = torch.from_numpy(np.random.default_rng(2).random((bbatch, bseq)) < 0.15).to(device)
-    bdt = timed("bert", lambda: train_bert.train_step(bparams, bopt, tokens, mask.long(),
-                                                      bconfig))
+    targets = mask.long()
+    bdt = timed("bert", lambda: train_bert.captured_step(bparams, bopt, tokens, targets,
+                                                         bconfig))
     out["bert_large_step_ms"] = round(bdt * 1e3, 2)
     out["bert_tokens_per_sec"] = round(bbatch * bseq / bdt, 1)
     del bparams, bopt
@@ -438,8 +446,8 @@ def bench_zoo(on_gpu: bool) -> dict:
     state = {"stats": rstats}
 
     def resnet_step():
-        loss, state["stats"] = train_resnet.train_step(rparams, state["stats"], ropt, images,
-                                                       labels, rconfig)
+        loss, state["stats"] = train_resnet.captured_step(rparams, state["stats"], ropt,
+                                                          images, labels, rconfig)
         return loss
 
     rdt = timed("resnet", resnet_step)

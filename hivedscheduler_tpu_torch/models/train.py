@@ -10,17 +10,33 @@ the parameters and AdamW's moments are DTensors placed by the rule table
 stages, dp and sp replicating), the batch is each rank's rows and, with
 sp > 1, its shard of the columns; the step's collectives are
 ``parallel/sharding.py``'s and, with pp > 1, ``parallel/pipeline.py``'s.
+
+On one card a step runs from a CUDA graph (:class:`StepGraphs`, found by
+:func:`step_graphs`; :func:`captured_step` for this model, each twin's
+``captured_step`` for its own): the counterpart of the JAX package's
+``jax.jit(train_step, donate_argnums=(0, 1))``, one graph a batch shape
+and dtype, the parameters and the optimizer's state updated in place. The
+eager ``train_step`` is its plain version: the CPU's path and the
+reference the graph is held to.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+import contextlib
+import dataclasses
+import hashlib
+import os
+import time
+import weakref
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .. import Device, resolve_device
+from ..ops.attention import add_launches, kernel_launches
 from ..parallel import sharding
 from . import transformer
 
@@ -136,19 +152,44 @@ def _sp_targets(tokens: torch.Tensor, mesh: Any) -> torch.Tensor:
     return torch.cat([tokens[:, 1:], first_of_next], dim=1)
 
 
+def capturable(leaves: Sequence[torch.Tensor], asked: Optional[bool] = None) -> bool:
+    """Whether an Adam over ``leaves`` keeps its step count and bias
+    corrections on the card (``capturable=True``), so that a CUDA graph
+    can hold its update: ``asked`` when given, else for plain CUDA tensors
+    (on the CPU and for DTensor leaves, a gang's, the step count stays a
+    CPU scalar)."""
+    if asked is not None:
+        return asked
+    return all(t.is_cuda and not isinstance(t, DTensor) for t in leaves)
+
+
+def quiet_if_capturable(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
+    """A capturable optimizer warns the first time it steps outside a
+    capture; here that is by design (the graph's warm-up and the eager
+    plain step), so the warning is marked as given."""
+    if all(g.get("capturable", False) for g in optimizer.param_groups):
+        optimizer._warned_capturable_if_run_uncaptured = True
+    return optimizer
+
+
 def make_optimizer(
-    params: Params, learning_rate: float = 3e-4, weight_decay: float = 0.1
+    params: Params, learning_rate: float = 3e-4, weight_decay: float = 0.1,
+    capturable_step: Optional[bool] = None,
 ) -> torch.optim.AdamW:
     """AdamW over every leaf (no mask), with ``optax.adamw``'s settings:
     b1 0.9, b2 0.95, eps 1e-8. Torch's decoupled decay p -= lr * wd * p is
     optax's ``add_decayed_weights`` then ``scale(-lr)``. Marks every leaf as
-    requiring grad."""
+    requiring grad. On plain CUDA leaves (or with ``capturable_step=True``)
+    it is capturable: the step count and the bias corrections live on the
+    card in f32, as ``optax.adamw`` computes them, and the eager step and
+    the captured one run the same arithmetic."""
     leaves = transformer.leaves(params)
     for t in leaves:
         t.requires_grad_(True)
-    return torch.optim.AdamW(
-        leaves, lr=learning_rate, betas=(0.9, 0.95), eps=1e-8, weight_decay=weight_decay
-    )
+    return quiet_if_capturable(torch.optim.AdamW(
+        leaves, lr=learning_rate, betas=(0.9, 0.95), eps=1e-8, weight_decay=weight_decay,
+        capturable=capturable(leaves, capturable_step),
+    ))
 
 
 def train_step(
@@ -202,30 +243,294 @@ def init_sharded(
     learning_rate: float = 3e-4,
     weight_decay: float = 0.1,
     model: Any = transformer,
+    capturable_step: Optional[bool] = None,
 ) -> Tuple[Params, torch.optim.AdamW]:
     """f32 master parameters straight into their placements
     (``model.init_distributed``, ``transformer`` by default: no rank ever
     holds more than one whole leaf, and the values are ``model.init``'s
     from the same generator) and their AdamW, whose moments take the
-    placements of :func:`shardings_for`. Returns (params, optimizer). On an
-    inactive mesh (one process, no group) they are ``model.init``'s plain
-    tensors, for the unsharded step."""
+    placements of :func:`shardings_for` (``capturable_step`` as in
+    :func:`make_optimizer`). Returns (params, optimizer). On an inactive
+    mesh (one process, no group) they are ``model.init``'s plain tensors,
+    for the unsharded step."""
     if sharding.is_active(mesh):
         params = model.init_distributed(config, mesh, generator, device, torch.float32)
     else:
         params = model.init(config, generator, device, torch.float32)
-    return params, make_optimizer(params, learning_rate, weight_decay)
+    return params, make_optimizer(params, learning_rate, weight_decay, capturable_step)
 
 
 def make_train_step(
     config: transformer.TransformerConfig, mesh: Any, optimizer: torch.optim.Optimizer
 ) -> Callable[[Params, torch.Tensor], torch.Tensor]:
-    """The sharded step, ``step(params, tokens) -> loss``: ``tokens`` are
-    this rank's rows (``sharding.shard_batch``), the loss the global
-    mean."""
+    """The step on ``mesh``, ``step(params, tokens) -> loss``: ``tokens``
+    are this rank's rows (``sharding.shard_batch``), the loss the global
+    mean. On an inactive mesh (one process) it is :func:`captured_step`."""
     device = mesh.device_type
 
     def step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return train_step(params, optimizer, tokens, config, device, mesh)
+        return captured_step(params, optimizer, tokens, config, device, mesh)
 
     return step
+
+
+# ------------------------------------------------------------ captured steps
+
+_DIGEST_CHUNK = 1024
+_DIGEST_PART = 1 << 24  # elements summed at a time: the int64 sum's input copy is 128 MB
+_WORDS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def tree_digest(tree: Any) -> str:
+    """A digest of a tree's bits, taken where its leaves live, for trees
+    too large to copy to the host: sha256 over each leaf's shape, dtype and
+    the int64 sums of its elements' bit patterns over consecutive chunks of
+    1024 elements (a DTensor leaf's local shard). Equal trees give equal
+    digests; trees that differ give different ones unless their
+    differences cancel inside a chunk."""
+    digest = hashlib.sha256()
+    for t in transformer.leaves(tree):
+        t = t.to_local() if isinstance(t, DTensor) else t
+        words = t.detach().reshape(-1).view(_WORDS[t.element_size()])
+        digest.update(f"{tuple(t.shape)} {t.dtype}".encode())
+        for part in words.split(_DIGEST_PART):
+            n = part.numel() // _DIGEST_CHUNK * _DIGEST_CHUNK
+            sums = torch.cat([part[:n].view(-1, _DIGEST_CHUNK).sum(1, dtype=torch.int64),
+                              part[n:].sum(dtype=torch.int64).reshape(1)])
+            digest.update(sums.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+
+def _graphed(t: torch.Tensor) -> bool:
+    """Whether a step of leaves on ``t``'s device runs from a captured
+    graph: on CUDA. The CPU runs the eager step."""
+    return t.is_cuda
+
+
+def _capture(fn: Callable[[], torch.Tensor]) -> Tuple[Callable[[], None], torch.Tensor]:
+    """Capture ``fn`` (device work only) into a CUDA graph with its own
+    memory pool; returns (replay, the graph's output). The capture runs
+    ``fn``'s Python and executes nothing on the card. A capture that fails
+    raises."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph.replay, out
+
+
+@contextlib.contextmanager
+def _expandable_segments(device: torch.device) -> Iterator[None]:
+    """Make the caching allocator's new segments expandable for the block
+    (CUDA), unless ``PYTORCH_ALLOC_CONF`` (or ``PYTORCH_CUDA_ALLOC_CONF``)
+    asked for them already.
+    A capture's private pool then grows in place: without it, each large
+    block that the pool's freed ones could not hold took a segment of its
+    own, and a Mixtral step at 2 layers reserved 78 GiB where its tensors
+    never held more than 59 (63 with it, one H100)."""
+    if device.type != "cuda":
+        yield
+        return
+    conf = ",".join(os.environ.get(k, "") for k in ("PYTORCH_ALLOC_CONF",
+                                                    "PYTORCH_CUDA_ALLOC_CONF"))
+    # torch.cuda.memory._set_allocator_settings: its older, now deprecated name.
+    setting = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                      None) or torch.cuda.memory._set_allocator_settings
+    setting("expandable_segments:True")
+    try:
+        yield
+    finally:
+        if "expandable_segments:true" not in conf.replace(" ", "").lower():
+            setting("expandable_segments:False")
+
+
+@contextlib.contextmanager
+def _side_stream(device: torch.device) -> Iterator[None]:
+    """Run the block on a side stream that waits for the current one and
+    is waited for after it (CUDA), as a capture's warm-up must; elsewhere
+    in place."""
+    if device.type != "cuda":
+        yield
+        return
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        yield
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured step: its replay, its output, its static inputs, the
+    state tree it updates in place, the leaves' gradients it writes and
+    each kernel's launches a replay."""
+
+    replay: Callable[[], None]
+    loss: torch.Tensor
+    batch: Tuple[torch.Tensor, ...]
+    state: Any
+    grads: List[Optional[torch.Tensor]]
+    launches: Dict[str, int]
+
+
+class StepGraphs:
+    """The captured training steps of one parameter tree and its optimizer
+    on one card: the port's counterpart of JAX's compile cache for a
+    jitted, donating train step. Made and found by :func:`step_graphs`.
+    It holds, for each (step kind, batch shapes and dtypes), the static
+    input buffers and one graph that runs the whole step: forward (the
+    flash kernels and the remat policy's recompute inside), backward, the
+    optimizer's in-place update of the f32 masters and, for a step with
+    state (ResNet's batch statistics), the copy of the new state into the
+    state tree.
+
+    The first call of a shape runs the real step eagerly on a side stream
+    (the warm-up a capture needs; it also makes the optimizer's lazy
+    state), then captures it, which executes nothing, and returns the
+    eager step's loss; its gradients stay in the leaves' ``.grad`` until
+    the next step, as ``train_step`` leaves them (copied into the graph's
+    gradient buffers; they wait on the host during the capture, so that
+    the capture's peak memory is the eager step's). Every later call copies
+    its batch into the static buffers and replays: no step runs twice and
+    the trajectory is the eager one. The loss returned is a copy of the
+    graph's output, which the next replay overwrites.
+
+    A replay runs no Python: the kernels' launch counts
+    (``ops.attention.kernel_launches``) are those the capture recorded,
+    added at each replay. It refers to the weights weakly: ``step_graphs``
+    drops the owner with its graphs as soon as a leaf or the optimizer is
+    freed, or the optimizer loads a state dict (its state tensors, which
+    the graphs read, are replaced). ``captures``, ``capture_s`` and
+    ``replays`` count over every owner."""
+
+    captures = 0
+    capture_s = 0.0
+    replays = 0
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._graphs: Dict[Any, _Graph] = {}
+        self._current: Optional[_Graph] = None  # whose gradients the leaves hold
+
+    def step(self, key: Any, fn: Callable[..., torch.Tensor], params: Any,
+             batch: Sequence[torch.Tensor], state: Any = None) -> Tuple[torch.Tensor, Any]:
+        """One step of ``fn(*batch)`` (the eager step of ``params`` by this
+        owner's optimizer; it returns the detached loss, and updates
+        ``state`` in place when there is one), from the graph for ``key``
+        and the batch's shapes and dtypes. Returns (loss, the state tree
+        the graph updates: ``state`` itself at the shape's first call, and
+        after it, with ``state``'s values copied in when another tree is
+        given)."""
+        leaves = transformer.leaves(params)
+        gkey = (key, tuple((tuple(t.shape), t.dtype) for t in batch))
+        graph = self._graphs.get(gkey)
+        if graph is None:
+            return self._first(gkey, fn, leaves, batch, state)
+        for static, t in zip(graph.batch, batch):
+            static.copy_(t)
+        if state is not None and state is not graph.state:
+            for static, t in zip(transformer.leaves(graph.state), transformer.leaves(state)):
+                static.copy_(t)
+        if self._current is not graph:
+            for leaf, grad in zip(leaves, graph.grads):
+                leaf.grad = grad
+            self._current = graph
+        graph.replay()
+        add_launches(graph.launches)
+        StepGraphs.replays += 1
+        return graph.loss.clone(), graph.state
+
+    def _first(self, gkey: Any, fn: Callable[..., torch.Tensor], leaves: List[torch.Tensor],
+               batch: Sequence[torch.Tensor], state: Any) -> Tuple[torch.Tensor, Any]:
+        static = tuple(t.to(self.device, copy=True) for t in batch)
+        with _side_stream(self.device):
+            loss = fn(*static)  # the real step, eagerly: the capture's warm-up
+        # The warm-up's gradients wait on the host while the capture makes
+        # its own buffers: beside them, the capture's peak would be the
+        # eager step's plus a copy of every gradient (more than 80 GB at
+        # Mixtral's widths).
+        warm = [None if leaf.grad is None else _to_host(leaf.grad) for leaf in leaves]
+        for leaf in leaves:
+            leaf.grad = None  # so that the captured backward assigns them
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()  # the warm-up's activations
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        with _expandable_segments(self.device):
+            replay, out = _capture(lambda: fn(*static))
+        StepGraphs.capture_s += time.perf_counter() - t0
+        StepGraphs.captures += 1
+        counted = {k: n - before[k] for k, n in kernel_launches().items()}
+        add_launches({k: -n for k, n in counted.items()})  # the capture launched nothing
+        graph = _Graph(replay, out, static, state, [leaf.grad for leaf in leaves], counted)
+        self._graphs[gkey] = graph
+        # The leaves hold the warm-up's gradients until the next step: in the
+        # graph's buffers, which its replays write.
+        for leaf, grad, w in zip(leaves, graph.grads, warm):
+            if grad is None:
+                leaf.grad = None if w is None else w.to(leaf.device)
+            elif w is not None:
+                grad.copy_(w, non_blocking=True)
+        self._current = graph
+        return loss, state
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A copy of a CUDA tensor in pinned host memory (a DMA at the link's
+    rate: 6.8 GB of gradients took 3.0 s through pageable memory and 0.12 s
+    pinned on one H100's host), synchronised; a CPU tensor itself."""
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host
+
+
+# The live owners, by the identities of the optimizer and the tree's leaves.
+# An entry leaves as soon as one of them is freed (``weakref.finalize``) or
+# the optimizer loads a state dict, so no graph outlives the tensors it
+# reads and writes.
+_STEP_GRAPHS: Dict[Tuple[int, ...], StepGraphs] = {}
+
+
+def _forget(key: Tuple[int, ...], ref: "weakref.ref[StepGraphs]") -> None:
+    if ref() is not None and _STEP_GRAPHS.get(key) is ref():
+        del _STEP_GRAPHS[key]
+
+
+def step_graphs(params: Any, optimizer: torch.optim.Optimizer) -> StepGraphs:
+    """The owner of the captured steps of ``params`` by ``optimizer``:
+    found by their identities, made on first use. It lives while the
+    optimizer and every leaf of the tree do, and no longer."""
+    tensors = transformer.leaves(params)
+    key = (id(optimizer), *map(id, tensors))
+    owner = _STEP_GRAPHS.get(key)
+    if owner is None:
+        owner = _STEP_GRAPHS[key] = StepGraphs(tensors[0].device)
+        ref = weakref.ref(owner)
+        for obj in (optimizer, *tensors):
+            weakref.finalize(obj, _forget, key, ref).atexit = False
+        optimizer.register_load_state_dict_post_hook(lambda _: _forget(key, ref))
+    return owner
+
+
+def captured_step(
+    params: Params,
+    optimizer: torch.optim.Optimizer,
+    tokens: torch.Tensor,
+    config: transformer.TransformerConfig,
+    device: Device = None,
+    mesh: Any = None,
+) -> torch.Tensor:
+    """:func:`train_step` from the captured graph of ``params``' owner
+    (:func:`step_graphs`) for ``tokens``' shape, the batch copied into its
+    static int64 buffer before each replay. The eager ``train_step`` runs
+    for CPU parameters and on an active mesh (a gang's step is not
+    captured yet). Returns the loss (a copy, not synchronised)."""
+    device = resolve_device(device)
+    if sharding.is_active(mesh) or not _graphed(transformer.leaves(params)[0]):
+        return train_step(params, optimizer, tokens, config, device, mesh)
+    return step_graphs(params, optimizer).step(
+        ("llama", config), lambda t: train_step(params, optimizer, t, config, device),
+        params, (tokens.to(torch.long),))[0]

@@ -348,13 +348,22 @@ def flash_bwd_dq(
 flash_bwd_dq.launches = 0
 
 
+_COUNTERS = {"flash_fwd": flash_attention, "flash_bwd_dkdv": flash_bwd_dkdv,
+             "flash_bwd_dq": flash_bwd_dq}
+
+
 def kernel_launches() -> Dict[str, int]:
     """Each kernel's launch count so far, by kernel name."""
-    return {
-        "flash_fwd": flash_attention.launches,
-        "flash_bwd_dkdv": flash_bwd_dkdv.launches,
-        "flash_bwd_dq": flash_bwd_dq.launches,
-    }
+    return {name: fn.launches for name, fn in _COUNTERS.items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (by kernel name) to the kernels' launch counts. A CUDA
+    graph's replay launches the kernels its capture recorded without
+    running the wrappers: its owner adds them here (and takes back what
+    the wrappers counted during the capture, which launched nothing)."""
+    for name, n in counts.items():
+        _COUNTERS[name].launches += n
 
 
 def flash_attention_bwd(

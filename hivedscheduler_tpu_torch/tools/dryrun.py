@@ -3,7 +3,9 @@
 
     python -m hivedscheduler_tpu_torch.tools.dryrun 4 [--rows fsdp_tp,dp] [--device cpu]
 
-Spawns an n-process gang (gloo on the CPU, NCCL on CUDA, one card a rank),
+Spawns an n-process gang (NCCL on CUDA, one card a rank, unless
+``--device cpu`` asks for gloo on the CPU; with no CUDA and no device it
+raises before any process starts, as every entry point of the port does),
 and each row of layouts takes one sharded train step of the ``tiny`` model
 from seed 0 on all-zero tokens, at least 4 rows of 256 rounded up to a
 multiple of dp x fsdp (identical rows keep the mean loss comparable across
@@ -149,11 +151,15 @@ def _moe_step(device: str, rows: int, mesh=None) -> float:
     return float(train_mixtral.train_step(params, optimizer, tokens.to(device), config, mesh))
 
 
-def reference_loss(device: str = "cpu", row: str = "", rows: int = 4) -> float:
+def reference_loss(device: Optional[str] = None, row: str = "", rows: int = 4) -> float:
     """The one-process step's loss on zero rows: the dense model's on 4,
     or for ``ep-moe`` Mixtral's on ``rows`` (routing capacity counts the
-    batch's tokens, so the row is held at its own batch)."""
+    batch's tokens, so the row is held at its own batch). On CUDA unless
+    ``device`` names the CPU (the eager step: the gang's is eager too)."""
+    from .. import resolve_device
     from ..models import train
+
+    device = resolve_device(device).type
 
     if row == "ep-moe":
         return _moe_step(device, rows)
@@ -200,14 +206,19 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dryrun(n: int, rows: Sequence[str] = ROWS, device: str = "cpu",
+def dryrun(n: int, rows: Sequence[str] = ROWS, device: Optional[str] = None,
            timeout: float = 600) -> Dict[str, object]:
-    """Run the rows on an n-process gang and hold each rank's loss to the
-    one-process step's; returns {"reference": the dense one-process loss,
+    """Run the rows on an n-process gang (on CUDA unless ``device`` names
+    the CPU; with no CUDA and no device it raises before starting any
+    process) and hold each rank's loss to the one-process step's; returns
+    {"reference": the dense one-process loss,
     "references": {row: the loss it is held to}, "rows": {row: loss},
     "launches": {row: each rank's kernel launches} (CUDA launches only),
     "expected": {row: each kernel's launches per rank on the card}}.
     Every process it starts is ended before it returns."""
+    from .. import resolve_device
+
+    device = resolve_device(device).type
     wanted = layouts(n, rows)
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -252,7 +263,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     parser.add_argument("n", type=int, help="processes in the gang")
     parser.add_argument("--rows", default=",".join(ROWS),
                         help=f"comma list of {ROWS}")
-    parser.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    parser.add_argument("--device", default=None, choices=("cpu", "cuda"),
+                        help="default cuda; 'cpu' runs the gang on gloo")
     parser.add_argument("--worker", nargs=2, type=int, metavar=("RANK", "PORT"),
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)

@@ -15,13 +15,19 @@ The job boots from the env block the scheduler writes at bind time
 ``--data`` each step takes the next batch of a flat token file (rows of
 ``--seq`` tokens, default the model's ``max_seq_len``; the sample order
 comes from seed 1 as in ``train_llama.py``), read and copied to the card
-ahead of the step; without it every step takes the same synthetic batch,
-as the JAX package's ``perf.bench_train_step`` does. Each step prints its
-loss, its time (host clock around a device sync), tokens/s, on CUDA the
-share of the H100's dense bf16 peak that the model FLOPs
-(``models/perf.flops_per_token``) reach, and each kernel's launches.
-``--device cpu`` runs the plain versions; ``--layers`` cuts the depth and
-nothing else.
+ahead of the step (on a side stream; the step copies it into its graph's
+static buffer on the current stream, which waits for that copy first);
+without it every step takes the same synthetic batch, as the JAX
+package's ``perf.bench_train_step`` does. On one card every step
+runs from the CUDA graph captured at the first step of its shape
+(``models/train.captured_step``, as JAX jits the step): the first step
+runs eagerly and captures, every later one copies its batch into the
+graph's static buffer and replays. Each step prints its loss, its time
+(host clock around a device sync), tokens/s, on CUDA the share of the
+H100's dense bf16 peak that the model FLOPs (``models/perf.flops_per_token``)
+reach, each kernel's launches (a replay's counted as its capture recorded
+them) and whether it captured. ``--device cpu`` runs the plain versions,
+the eager step; ``--layers`` cuts the depth and nothing else.
 
 A gang of more than one process lays itself out as ``train_llama.py``
 does: tp 4 when the world divides by 4, sp 1, the rest fsdp
@@ -96,10 +102,12 @@ def run(
 ) -> Iterator[Dict[str, object]]:
     """Take ``steps`` AdamW steps (a new ``make_optimizer`` unless one is
     given), each on the next of ``tokens``' batches, or on ``tokens`` itself
-    when it is one [B, S] tensor; yield one record a step: loss, step_ms,
-    tokens_per_s, peak_share (CUDA only) and launches. On an active
-    ``mesh`` the batches are this rank's rows, tokens/s and the peak share
-    this rank's, and the loss the global batch's."""
+    when it is one [B, S] tensor, through ``models/train.captured_step``
+    (on one card, from the graph of the batch's shape); yield one record a
+    step: loss, step_ms, tokens_per_s, peak_share (CUDA only), launches and
+    captured (whether the step captured its graph). On an active ``mesh``
+    the step is eager, the batches are this rank's rows, tokens/s and the
+    peak share this rank's, and the loss the global batch's."""
     batches = itertools.repeat(tokens) if isinstance(tokens, torch.Tensor) else iter(tokens)
     optimizer = optimizer or train.make_optimizer(params)
     n_param = perf.n_params(params)
@@ -107,10 +115,10 @@ def run(
         batch = next(batches)
         device = batch.device
         flops_tok = perf.flops_per_token(config, n_param, batch.shape[1])
-        before = kernel_launches()
+        before, captures = kernel_launches(), train.StepGraphs.captures
         _sync(device)
         t0 = time.perf_counter()
-        loss = float(train.train_step(params, optimizer, batch, config, device, mesh))
+        loss = float(train.captured_step(params, optimizer, batch, config, device, mesh))
         _sync(device)
         seconds = time.perf_counter() - t0
         after = kernel_launches()
@@ -124,6 +132,7 @@ def run(
                 flops_tok * tok_s / perf.H100_BF16_FLOPS if device.type == "cuda" else None
             ),
             "launches": {k: after[k] - before[k] for k in after},
+            "captured": train.StepGraphs.captures > captures,
         }
 
 
@@ -209,7 +218,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
             print(
                 f"step {rec['step']}: loss {rec['loss']:.4f}, {rec['step_ms']:.1f} ms, "
                 f"{rec['tokens_per_s']:.0f} tok/s, bf16 peak share "
-                f"{'n/a' if share is None else f'{share:.3f}'}, launches {rec['launches']}",
+                f"{'n/a' if share is None else f'{share:.3f}'}, launches {rec['launches']}"
+                + (", captured" if rec["captured"] else ""),
                 flush=True,
             )
     finally:

@@ -11,7 +11,8 @@ seed 1 and masks 15% of its positions: a masked position's token becomes
 [MASK] (103) and its target the original token; every other target is
 -100. AdamW with ``optax.adamw(1e-4)``'s settings on every leaf: lr 1e-4,
 betas (0.9, 0.999), eps 1e-8, weight decay 1e-4. The weights come from
-seed 0. Prints ``step i mlm loss x`` each step.
+seed 0. Prints ``step i mlm loss x`` each step. On one card each step
+replays the CUDA graph captured at the first (``captured_step``).
 
 The port adds ``--steps``, ``--layers`` (cut the depth, widths kept) and
 ``--device``. One process keeps the unsharded step.
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models import bert, transformer
+from ..models import bert, train, transformer
 from ..ops.attention import kernel_launches
 from ..parallel import mesh as pmesh
 from ..parallel import sharding
@@ -42,12 +43,14 @@ MASK_ID, MASK_RATE, IGNORE = 103, 0.15, -100
 def make_optimizer(params: bert.Params, learning_rate: float = 1e-4) -> torch.optim.AdamW:
     """AdamW over every leaf with ``optax.adamw(learning_rate)``'s defaults
     (betas 0.9 / 0.999, eps 1e-8, weight decay 1e-4). Marks every leaf as
-    requiring grad."""
+    requiring grad. Capturable on plain CUDA leaves, as
+    ``models/train.make_optimizer``."""
     leaves = transformer.leaves(params)
     for t in leaves:
         t.requires_grad_(True)
-    return torch.optim.AdamW(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-4)
+    return train.quiet_if_capturable(torch.optim.AdamW(
+        leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
+        capturable=train.capturable(leaves)))
 
 
 def masked_batch(rng: np.random.Generator, batch: int, seq: int,
@@ -72,6 +75,20 @@ def train_step(params: bert.Params, optimizer: torch.optim.Optimizer, tokens: to
         loss = sharding.mean_over_batch(loss, mesh)
     optimizer.step()
     return loss.detach()
+
+
+def captured_step(params: bert.Params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor,
+                  targets: torch.Tensor, config: bert.BertConfig, mesh: Any = None
+                  ) -> torch.Tensor:
+    """:func:`train_step` from the captured graph of ``params``' owner
+    (``models/train.step_graphs``) for the batch's shape, ``tokens`` and
+    ``targets`` its static inputs; the eager step for CPU parameters and
+    on an active mesh."""
+    if sharding.is_active(mesh) or not train._graphed(transformer.leaves(params)[0]):
+        return train_step(params, optimizer, tokens, targets, config, mesh)
+    return train.step_graphs(params, optimizer).step(
+        ("bert", config), lambda t, y: train_step(params, optimizer, t, y, config), params,
+        (tokens, targets))[0]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
@@ -107,7 +124,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        loss = float(train_step(params, optimizer, tokens, targets, config, mesh))
+        loss = float(captured_step(params, optimizer, tokens, targets, config, mesh))
         seconds = time.perf_counter() - t0
         after = kernel_launches()
         rec = {"step": i, "loss": loss, "step_ms": seconds * 1e3,

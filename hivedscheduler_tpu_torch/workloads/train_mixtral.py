@@ -13,17 +13,22 @@ of 4 rows per batch shard (4 * dp * fsdp) of 4096 synthetic tokens and
 prints ``step i loss x``. AdamW with ``optax.adamw(1e-4)``'s settings on
 every leaf; the weights come from seed 0 and the rows from seed 1. The
 loss is ``mixtral.lm_loss``: the cross entropy plus 0.01 times the
-routers' load-balancing loss.
+routers' load-balancing loss. On one card each step replays the CUDA graph
+captured at the first (``captured_step``).
 
 The port adds ``--steps``, ``--layers`` (cut the depth, widths kept),
-``--model`` (``tiny`` for smoke tests), ``--seq`` and ``--device``. One
-process keeps the unsharded step.
+``--model`` (``tiny`` for smoke tests), ``--seq``, ``--device`` and
+``--plain`` (the eager step on the card too, the captured step's plain
+version), and ends with one ``mixtral summary {...}`` JSON line: the
+losses, the parameters' digest (``models/train.tree_digest``) and on the
+card the peak memory. One process keeps the unsharded step.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -66,6 +71,21 @@ def train_step(params: mixtral.Params, optimizer: torch.optim.Optimizer, tokens:
     return loss.detach()
 
 
+def captured_step(params: mixtral.Params, optimizer: torch.optim.Optimizer,
+                  tokens: torch.Tensor, config: mixtral.MixtralConfig,
+                  mesh: Any = None) -> torch.Tensor:
+    """:func:`train_step` from the captured graph of ``params``' owner
+    (``models/train.step_graphs``) for ``tokens``' shape, copied into its
+    static int64 buffer; the eager step for CPU parameters and on an active
+    mesh. The routing reads nothing back to the host and its shapes come
+    from the batch's, so one graph serves every batch of a shape."""
+    if sharding.is_active(mesh) or not train._graphed(transformer.leaves(params)[0]):
+        return train_step(params, optimizer, tokens, config, mesh)
+    return train.step_graphs(params, optimizer).step(
+        ("mixtral", config), lambda t: train_step(params, optimizer, t, config), params,
+        (tokens.to(torch.long),))[0]
+
+
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=30)
@@ -76,6 +96,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     parser.add_argument("--seq", type=int, default=SEQ)
     parser.add_argument("--device", default=None,
                         help="default cuda; 'cpu' runs the plain versions")
+    parser.add_argument("--plain", action="store_true",
+                        help="the eager step on the card too (the captured step's plain "
+                             "version)")
     args = parser.parse_args(argv)
 
     lift_env_block()  # the card grant, before anything initialises CUDA
@@ -102,7 +125,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        loss = float(train_step(params, optimizer, tokens, config, mesh))
+        step = train_step if args.plain else captured_step
+        loss = float(step(params, optimizer, tokens, config, mesh))
         seconds = time.perf_counter() - t0
         after = kernel_launches()
         rec = {"step": i, "loss": loss, "step_ms": seconds * 1e3,
@@ -111,6 +135,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
         records.append(rec)
         print(f"step {i} loss {loss:.6f} ({rec['step_ms']:.1f} ms, "
               f"{rec['tokens_per_s']:.0f} tok/s, launches {rec['launches']})", flush=True)
+    summary = {"losses": [r["loss"] for r in records],
+               "params_digest": train.tree_digest(transformer.leaves(params))}
+    if device.type == "cuda":
+        summary["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    print("mixtral summary " + json.dumps(summary), flush=True)
     return records
 
 

@@ -10,7 +10,9 @@ Adam as ``optax.adam(1e-3)`` (betas 0.9 / 0.999, eps 1e-8 added to the
 root, no decay). Weights and data come from numpy seed 0 (the port keeps
 its own seeds). Prints every 20th step's loss, then ``done``. It launches
 none of the port's kernels. ``--device cpu`` is the configuration's own
-cell (one CPU socket); ``--steps`` defaults to the reference's 100.
+cell (one CPU socket); ``--steps`` defaults to the reference's 100. On the
+card the whole batch is one graph's static input: the first step captures
+it and every later step replays it (``captured_step``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..models import train
 
 ROWS, STEPS = 512, 100
 
@@ -50,10 +53,14 @@ def loss_fn(p: Dict[str, torch.Tensor], x: torch.Tensor, y: torch.Tensor) -> tor
 def make_optimizer(params: Dict[str, torch.Tensor], learning_rate: float = 1e-3
                    ) -> torch.optim.Adam:
     """Adam with ``optax.adam(learning_rate)``'s settings; marks every leaf
-    as requiring grad."""
-    for t in params.values():
+    as requiring grad. Capturable on CUDA leaves, as
+    ``models/train.make_optimizer``."""
+    leaves = list(params.values())
+    for t in leaves:
         t.requires_grad_(True)
-    return torch.optim.Adam(params.values(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    return train.quiet_if_capturable(torch.optim.Adam(
+        leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+        capturable=train.capturable(leaves)))
 
 
 def train_step(params: Dict[str, torch.Tensor], optimizer: torch.optim.Optimizer,
@@ -63,6 +70,17 @@ def train_step(params: Dict[str, torch.Tensor], optimizer: torch.optim.Optimizer
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+def captured_step(params: Dict[str, torch.Tensor], optimizer: torch.optim.Optimizer,
+                  x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """:func:`train_step` from the captured graph of ``params``' owner
+    (``models/train.step_graphs``), ``x`` and ``y`` its static inputs; the
+    eager step for CPU parameters."""
+    if not train._graphed(next(iter(params.values()))):
+        return train_step(params, optimizer, x, y)
+    return train.step_graphs(params, optimizer).step(
+        "mnist", lambda a, b: train_step(params, optimizer, a, b), params, (x, y))[0]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[float]:
@@ -77,7 +95,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     optimizer = make_optimizer(params)
     losses = []
     for i in range(args.steps):
-        losses.append(train_step(params, optimizer, x, y))
+        losses.append(captured_step(params, optimizer, x, y))
         if i % 20 == 0:
             print(f"step {i} loss {float(losses[-1]):.4f}", flush=True)
     print("done", flush=True)

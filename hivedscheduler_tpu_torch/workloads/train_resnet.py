@@ -20,8 +20,11 @@ The reference's env knobs (``TRAIN_STEPS``, ``TRAIN_BATCH``,
 ``--image-size``; ``--device`` as in the other twins. Each step prints
 ``step i loss x (ms, img/s, launches {...})``; the end prints one
 ``resnet summary {...}`` JSON line with the running stats' digest (equal on
-every rank of a gang), how far they moved from (0, 1), and the peak device
-memory.
+every rank of a gang), how far they moved from (0, 1), the parameters'
+digest, the losses, the captured graphs' counts (``graph``: captures,
+replays, capture ms) and the peak device memory. On one card each step
+replays the CUDA graph captured at the first (``captured_step``);
+``--plain`` runs the eager step, its plain version.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models import resnet, transformer
+from ..models import resnet, train, transformer
 from ..ops.attention import kernel_launches
 from ..parallel import mesh as pmesh
 from ..parallel import sharding
@@ -73,6 +76,29 @@ def train_step(params: resnet.Params, stats: resnet.Params, optimizer: torch.opt
     return loss.detach(), new_stats
 
 
+def captured_step(params: resnet.Params, stats: resnet.Params, optimizer: torch.optim.Optimizer,
+                  images: torch.Tensor, labels: torch.Tensor, config: resnet.ResNetConfig,
+                  mesh: Any = None) -> Tuple[torch.Tensor, resnet.Params]:
+    """:func:`train_step` from the captured graph of ``params``' owner
+    (``models/train.step_graphs``) for the batch's shape, ``images`` and
+    ``labels`` its static inputs. The graph copies the new statistics into
+    its stats tree, which it returns: ``stats`` itself at a shape's first
+    call, which keeps its identity and holds each step's statistics (a
+    later call that passes another tree has its values copied in first).
+    The eager step, which returns new tensors, for CPU parameters and on an
+    active mesh."""
+    if sharding.is_active(mesh) or not train._graphed(transformer.leaves(params)[0]):
+        return train_step(params, stats, optimizer, images, labels, config, mesh)
+
+    def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        loss, new = train_step(params, stats, optimizer, x, y, config)
+        torch._foreach_copy_(transformer.leaves(stats), transformer.leaves(new))
+        return loss
+
+    return train.step_graphs(params, optimizer).step(("resnet", config), step, params,
+                                                     (images, labels), stats)
+
+
 def synthetic_batch(rng: np.random.Generator, batch: int, size: int,
                     classes: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(images [batch, size, size, 3] f32 from a normal, labels [batch])."""
@@ -99,6 +125,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     parser.add_argument("--image-size", type=int, default=IMAGE_SIZE)
     parser.add_argument("--device", default=None,
                         help="default cuda; 'cpu' runs on the CPU")
+    parser.add_argument("--plain", action="store_true",
+                        help="the eager step on the card too (the captured step's plain "
+                             "version)")
     args = parser.parse_args(argv)
 
     lift_env_block()  # the card grant, before anything initialises CUDA
@@ -126,7 +155,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        loss, stats = train_step(params, stats, optimizer, images, labels, config, mesh)
+        step = train_step if args.plain else captured_step
+        loss, stats = step(params, stats, optimizer, images, labels, config, mesh)
         loss = float(loss)
         seconds = time.perf_counter() - t0
         after = kernel_launches()
@@ -136,7 +166,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
         records.append(rec)
         print(f"step {i} loss {loss:.4f} ({rec['step_ms']:.1f} ms, "
               f"{rec['images_per_s']:.0f} img/s, launches {rec['launches']})", flush=True)
-    summary = stats_summary(stats)
+    summary = {**stats_summary(stats), "params_digest": train.tree_digest(params),
+               "losses": [r["loss"] for r in records],
+               "graph": {"captures": train.StepGraphs.captures,
+                         "replays": train.StepGraphs.replays,
+                         "capture_ms": train.StepGraphs.capture_s * 1e3}}
     if device.type == "cuda":
         summary["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     print("resnet summary " + json.dumps(summary), flush=True)

@@ -490,3 +490,167 @@ def test_cuda_captured_decode_on_a_one_rank_nccl_mesh(nccl_mesh, int8):
     assert generate.Decoder.captures == captures + 1
     assert torch.equal(again, generate.generate(sharded, local.flip(1), config, 12,
                                                 mesh=nccl_mesh, plain=True))
+
+
+# -- the captured training steps (models/train.step_graphs) ----------------
+
+
+def _train_case(name, device):
+    """(make() -> (params, optimizer, state), batch(i) -> step i's batch on
+    the card, step(captured, params, optimizer, state, batch) -> (loss,
+    state)) of a small model, large enough to reach the kernels where it
+    has attention (S 256; BERT at head_dim 64)."""
+    import dataclasses
+
+    import numpy as np
+
+    from hivedscheduler_tpu_torch.models import bert, mixtral, resnet, train, transformer
+    from hivedscheduler_tpu_torch.workloads import (train_bert, train_mixtral, train_mnist,
+                                                    train_resnet)
+
+    def on_card(*ts):
+        return tuple(t.to(device) for t in ts)
+
+    def rows(i, shape, high):
+        return on_card(torch.from_numpy(np.random.default_rng(i).integers(0, high, shape)))
+
+    if name == "llama":
+        config = dataclasses.replace(transformer.tiny(), remat=True, remat_policy="flash")
+
+        def make():
+            params = transformer.init(config, torch.Generator(device=device).manual_seed(0),
+                                      device, dtype=torch.float32)
+            return params, train.make_optimizer(params), None
+
+        def batch(i):
+            return rows(i, (2, 256), config.vocab_size)
+
+        def step(captured, p, o, s, b):
+            fn = train.captured_step if captured else train.train_step
+            return fn(p, o, *b, config, device), s
+    elif name == "mixtral":
+        config = mixtral.MixtralConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+                                       n_kv_heads=2, d_ff=256, n_experts=4, max_seq_len=256,
+                                       dtype=torch.float32)
+
+        def make():
+            params = mixtral.init(config, torch.Generator(device=device).manual_seed(0), device)
+            return params, train_mixtral.make_optimizer(params), None
+
+        def batch(i):
+            return rows(i, (2, 256), config.vocab_size)
+
+        def step(captured, p, o, s, b):
+            fn = train_mixtral.captured_step if captured else train_mixtral.train_step
+            return fn(p, o, *b, config), s
+    elif name == "bert":
+        config = bert.BertConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4, d_ff=512,
+                                 max_seq_len=256, dtype=torch.float32)
+
+        def make():
+            params = bert.init(config, torch.Generator(device=device).manual_seed(0), device)
+            return params, train_bert.make_optimizer(params), None
+
+        def batch(i):
+            return on_card(*train_bert.masked_batch(np.random.default_rng(i), 2, 256,
+                                                    config.vocab_size))
+
+        def step(captured, p, o, s, b):
+            fn = train_bert.captured_step if captured else train_bert.train_step
+            return fn(p, o, *b, config), s
+    elif name == "resnet":
+        config = resnet.ResNetConfig(num_classes=10, width=16, dtype=torch.float32)
+
+        def make():
+            params, stats = resnet.init(config, torch.Generator(device=device).manual_seed(0),
+                                        device)
+            return params, train_resnet.make_optimizer(params), stats
+
+        def batch(i):
+            return on_card(*train_resnet.synthetic_batch(np.random.default_rng(i), 4, 32, 10))
+
+        def step(captured, p, o, s, b):
+            fn = train_resnet.captured_step if captured else train_resnet.train_step
+            return fn(p, s, o, *b, config)
+    else:
+        def make():
+            params = {k: torch.from_numpy(v).to(device)
+                      for k, v in train_mnist.init(np.random.default_rng(0)).items()}
+            return params, train_mnist.make_optimizer(params), None
+
+        def batch(i):
+            return on_card(*(torch.from_numpy(a) for a in
+                             train_mnist.synthetic_data(np.random.default_rng(i), 64)))
+
+        def step(captured, p, o, s, b):
+            fn = train_mnist.captured_step if captured else train_mnist.train_step
+            return fn(p, o, *b), s
+    return make, batch, step
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    # cuDNN may pick a backward that adds with atomics, which no two runs
+    # repeat bit for bit, captured or not.
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = was
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama", "bert", "mixtral", "resnet", "mnist"])
+def test_cuda_captured_train_step_equals_the_eager_step(cuda_device, deterministic_cudnn, name):
+    # Each on its own capturable optimizer from the same seed: the graph's
+    # losses, parameters (and ResNet's stats) after four steps on four new
+    # batches equal the eager steps' bit for bit, and each kernel's launches
+    # a step, counted through the replays, equal the eager step's. The last
+    # replay reads nothing back to the host.
+    from hivedscheduler_tpu_torch.models import train, transformer
+
+    make, batch, step = _train_case(name, cuda_device)
+    runs = {}
+    for captured in (False, True):
+        params, opt, state = make()
+        losses, launches = [], []
+        captures, replays = train.StepGraphs.captures, train.StepGraphs.replays
+        for i in range(4):
+            b = batch(i)
+            before = TA.kernel_launches()
+            torch.cuda.synchronize()
+            if captured and i == 3:
+                torch.cuda.set_sync_debug_mode("error")  # any host read raises
+            try:
+                loss, state = step(captured, params, opt, state, b)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            losses.append(loss)
+            after = TA.kernel_launches()
+            launches.append({k: after[k] - before[k] for k in after})
+        assert train.StepGraphs.captures == captures + captured
+        assert train.StepGraphs.replays == replays + 3 * captured
+        runs[captured] = (losses, transformer.leaves(params),
+                          transformer.leaves(state) if state is not None else [], launches)
+    (el, ep, es, eln), (cl, cp, cs, cln) = runs[False], runs[True]
+    assert all(torch.equal(a, b) for a, b in zip(el, cl))
+    assert len({float(x) for x in cl}) == 4  # each batch its own loss
+    assert all(torch.equal(a, b) for a, b in zip(ep + es, cp + cs))
+    assert eln == cln
+    if name in ("llama", "bert", "mixtral"):
+        assert all(n["flash_bwd_dq"] == 2 for n in cln)
+
+
+@pytest.mark.cuda
+def test_cuda_a_capture_that_fails_raises(cuda_device):
+    # An AdamW whose step count lives on the host cannot be captured: the
+    # owner raises (no quiet eager fallback on the card).
+    import dataclasses
+
+    from hivedscheduler_tpu_torch.models import train, transformer
+
+    config = dataclasses.replace(transformer.tiny(), n_layers=1)
+    params = transformer.init(config, torch.Generator(device=cuda_device).manual_seed(0),
+                              cuda_device, dtype=torch.float32)
+    opt = train.make_optimizer(params, capturable_step=False)
+    with pytest.raises(RuntimeError, match="capturable"):
+        train.captured_step(params, opt, torch.zeros(1, 256, dtype=torch.long), config)

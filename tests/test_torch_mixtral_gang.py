@@ -169,7 +169,7 @@ def test_one_process_checkpoint_serves_on_fsdp2_ep2(gang):
 
 
 def test_dryrun_ep_moe_row_at_four_processes():
-    result = dryrun.dryrun(4, rows=("ep-moe",), timeout=300)
+    result = dryrun.dryrun(4, rows=("ep-moe",), device="cpu", timeout=300)
     assert dryrun.layouts(4, ["ep-moe"]) == {"ep-moe": dict(fsdp=2, ep=2)}
     # Held to the one-process Mixtral step on the same 4 zero rows, not the dense one.
     assert result["references"]["ep-moe"] == dryrun.reference_loss("cpu", "ep-moe", 4)

@@ -361,7 +361,7 @@ def test_serving_refuses_a_pipelined_mesh(monkeypatch):
 
 
 def test_dryrun_pipeline_rows_at_four_processes():
-    result = dryrun.dryrun(4, rows=("pp", "pp-x-sp"), timeout=300)
+    result = dryrun.dryrun(4, rows=("pp", "pp-x-sp"), device="cpu", timeout=300)
     assert sorted(result["rows"]) == ["pp", "pp-x-sp"]
     assert all(abs(v - result["reference"]) <= dryrun.TOL for v in result["rows"].values())
     assert dryrun.layouts(4, ["pp", "pp-x-sp"]) == {"pp": dict(pp=2, fsdp=1, tp=2),

@@ -251,7 +251,7 @@ def test_inactive_meshes_keep_the_unsharded_path():
 
 
 def test_dryrun_four_processes():
-    result = dryrun.dryrun(4, timeout=300)
+    result = dryrun.dryrun(4, device="cpu", timeout=300)
     assert sorted(result["rows"]) == ["dp", "ep-moe", "fsdp", "fsdp_sp_tp", "fsdp_tp", "pp",
                                       "pp-x-sp", "ulysses-sp"]
     # Each row against its own one-process step (ep-moe: Mixtral's).
@@ -259,6 +259,17 @@ def test_dryrun_four_processes():
                for row, v in result["rows"].items())
     assert all(result["references"][row] == result["reference"]
                for row in result["rows"] if row != "ep-moe")
+
+
+def test_dryrun_without_a_device_needs_cuda(monkeypatch):
+    # As every entry point of the port: CUDA unless the CPU is asked for,
+    # and no process is started when there is none.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun.subprocess, "Popen", lambda *a, **kw: pytest.fail("spawned"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.dryrun(4, rows=("fsdp",))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.reference_loss()
 
 
 @pytest.mark.parametrize("row,item", [("ep-moe", 12)])

@@ -264,7 +264,7 @@ def test_q_chunk_size_is_the_jax_one(sq, sk, q_chunk):
 
 
 def test_dryrun_sequence_rows_at_four_processes():
-    result = dryrun.dryrun(4, rows=("fsdp_sp_tp", "ulysses-sp"), timeout=300)
+    result = dryrun.dryrun(4, rows=("fsdp_sp_tp", "ulysses-sp"), device="cpu", timeout=300)
     assert sorted(result["rows"]) == ["fsdp_sp_tp", "ulysses-sp"]
     assert all(abs(v - result["reference"]) <= dryrun.TOL for v in result["rows"].values())
     assert dryrun.layouts(4, ["fsdp_sp_tp"]) == {"fsdp_sp_tp": dict(fsdp=1, sp=2, tp=2)}
