@@ -123,17 +123,25 @@ neither the kernels line nor the last line, since no main path ran):
 8. sharded - a one-rank NCCL group (TCP store on 127.0.0.1) and the 6-axis
              mesh over it; NCCL's all-gather, reduce-scatter and all-reduce
              once each (the model skips collectives over one rank, so the
-             steps below communicate nothing), then the four of them
-             (all-reduce by sum and by max) captured in one CUDA graph by
-             the decode step's capture (``generate._capture``) and
-             replayed on fresh inputs, each output equal to its input: the
-             one capture of NCCL a one-card run can show; phase 5's model, seed and
-             batch through the sharded step, eager, with phase 5's
-             capturable AdamW arithmetic (``init_sharded``,
-             ``make_train_step``, ``shard_batch``), 2 warm-up steps whose
-             losses and every leaf's bytes after them must equal phase 5's
-             bit for bit, then 4 timed steps, each launching every kernel
-             once a layer; its mean step ms is printed beside phase 5's.
+             steps below communicate nothing), then the step's calls
+             (funcol's all-gather, reduce-scatter, all-reduce by sum and by
+             max; c10d's in-place all-reduce and all-to-all;
+             ``_AllReduceSum`` and its backward; a batched send and
+             receive to itself) captured in one CUDA graph by the decode
+             step's capture (``generate._capture``) and replayed on fresh
+             inputs, each output equal to its input: the one capture of
+             NCCL a one-card run can show; phase 5's model, seed and batch
+             through the sharded step (``init_sharded``, ``shard_batch``,
+             its DTensor AdamW capturable): 6 eager steps
+             (``train.train_step``), then from the same seed 6 through
+             ``make_train_step``, each a replay of the rank's graph after
+             the first (one capture), 2 warm-up steps whose every leaf's
+             bytes after them must equal phase 5's, then 4 timed: the 6
+             losses and the parameters' digest must equal phase 5's
+             captured run's and the eager mesh steps', bit for bit, each
+             step launching every kernel once a layer
+             (``[train_graph]`` line ``sharded_llama3_8b_8_layers``); its
+             mean step ms is printed beside phase 5's.
              Then, after a warm-up request at the timed shape (it captures
              the mesh's decode step), phase 4's first prompt through the
              sharded serving path at 32 layers, decoding from the captured
@@ -151,22 +159,36 @@ neither the kernels line nor the last line, since no main path ran):
              pipeline rows ``pp`` and ``pp-x-sp`` too) must come within
              5e-3 of the one-process loss, each rank launching each kernel
              as often as its row asks (once a layer; on a pipeline stage
-             once a layer of the stage a microbatch); with four cards the
-             longctx twin (tp 4) and the pipeline twin (pp 2 x tp 2,
-             Llama-3-8B's widths at 8 layers, batch 8 x 4096 in 4
-             microbatches, 3 steps) run through the pod's launcher on a
-             four-card bind info, their losses within GANG_TOL of the same
-             model, seeds and batches on one card; so does the Mixtral twin
-             (ep 4 x fsdp 1: two experts a rank, every rank holding all 4
-             rows; 2 layers, 4 x 4096, 3 steps), each rank launching the
-             kernels as phase 11 (c) does (the dryrun's ``ep-moe`` row
-             launches none: Mixtral tiny's heads of 16); the ResNet twin
-             runs at dp 4 (BASELINE config 2: 32 images of 224^2 a card, 3
-             steps) against one card at batch 128 on the same seeds, its
-             first loss (before any update) within GANG_TOL, the later
-             ones logged with their gaps (in bf16 at random init a step of
-             SGD moves them by more than rounding), its batch norm's
-             running stats equal on the four ranks (their digest). Last, the
+             once a layer of the stage a microbatch). With four cards, the
+             training gangs: each rank is this script's
+             ``--train-gang-job NAME``, started by the pod's launcher on a
+             four-card bind info, which runs the twin eagerly (its plain
+             version), then through its entry point, every step after the
+             first a replay of the rank's captured graph with the step's
+             collectives inside: each rank's captured losses (and digests,
+             where the twin prints them) must equal its eager run's bit
+             for bit, with one capture; each rank logs capture ms, replays
+             and peak. First the f64 gate: phase 12 (a)'s small ResNet in
+             f64 at dp 4 (8 x 32^2, 3 SGD steps) against one card at the
+             same global batch, eager and captured on each side: the
+             losses, every parameter and running statistic within
+             F64_GANG_TOL. Then the longctx twin (tp 4) and the pipeline
+             twin (pp 2 x tp 2, Llama-3-8B's widths at 8 layers, batch 8 x
+             4096 in 4 microbatches, 3 steps), their losses within
+             GANG_TOL of the same model, seeds and batches on one card; so
+             does the Mixtral twin (ep 4 x fsdp 1: two experts a rank,
+             every rank holding all 4 rows; 2 layers, 4 x 4096, 3 steps),
+             each rank launching the kernels as phase 11 (c) does (a
+             replay counting what its capture recorded; the dryrun's
+             ``ep-moe`` row launches none: Mixtral tiny's heads of 16); the
+             ResNet twin runs at dp 4 (BASELINE config 2: 32 images of
+             224^2 a card, 3 steps) against one card at batch 128 on the
+             same seeds, its first loss (before any update) within
+             GANG_TOL, the later ones logged with their gaps (in bf16 at
+             random init a step of SGD moves them by more than rounding;
+             the f64 gate holds the updates), its batch norm's running
+             stats equal on the four ranks (their digest), with
+             ``--profile`` each rank's idle share over one replay. Last, the
              serving gangs (SERVE_GANGS): Llama-3-8B (32 layers, 4 x 2048,
              32 greedy tokens, 2 requests) at tp 4 in bf16 and with
              ``--int8``, and Mixtral-8x7B (16 layers, the same traffic) at
@@ -433,6 +455,17 @@ MIXTRAL_TRAIN = {"layers": 2, "warmup": 2, "timed": 4}
 RESNET_SMALL = {"config": dict(num_classes=10, width=16), "batch": 4, "size": 32, "steps": 2}
 RESNET = {"batch": 32, "size": 224, "warmup": 2, "timed": 4}
 RESNET_GANG = {"batch": 32, "steps": 3}
+# The four-card f64 gate: phase 12 (a)'s small ResNet in f64 at dp 4 (a
+# global batch of 8, two images a card) against one card at the global
+# batch, over 3 SGD steps, eager and captured on each side. In f64 the two
+# sides differ by the order of the batch's sums alone (2^-53 a rounding,
+# grown by this ill-conditioned forward and by SGD's steps); in f32 that
+# order moves the gradients by percents, and batch norm over each rank's
+# own images moves the loss by more than 1e-2 (tests/test_torch_resnet_gang.py's
+# control). Relative to each leaf's largest |value| (losses: to the loss).
+RESNET_F64_GANG = {"config": dict(num_classes=10, width=16), "batch": 8, "size": 32,
+                   "steps": 3}
+F64_GANG_TOL = {"loss_rel": 1e-8, "leaf_max_rel": 1e-6}
 # Phase 7's train-graph gate at the perf harness's model: steps of each run
 # (the captured run's first captures, the rest replay).
 PERF_GRAPH_STEPS = 4
@@ -1120,7 +1153,7 @@ def phase_train(seed: int, profile: bool) -> dict:
                                                               step_ms)))
     del params, optimizer, tokens
     _free_card()
-    return {**summary, "after_warmup": after_warmup}
+    return {**summary, "after_warmup": after_warmup, "digest": captured["digest"]}
 
 
 def _equal(x, y) -> bool:
@@ -1608,38 +1641,59 @@ def _free_port() -> int:
 
 
 def nccl_capture_probe(mesh, seed: int) -> None:
-    """The port's collectives over the one-rank NCCL group (all-gather,
-    reduce-scatter, all-reduce by sum and by max) captured in one CUDA
-    graph by the decode step's capture (``generate._capture``: a warm-up
-    run on a side stream, then the capture) and replayed on fresh inputs:
-    each replay's outputs must be its inputs."""
+    """The port's collectives over the one-rank NCCL group captured in one
+    CUDA graph by the decode step's capture (``generate._capture``: a
+    warm-up run on a side stream, then the capture) and replayed on fresh
+    inputs: funcol's all-gather, reduce-scatter and all-reduce by sum and
+    by max (the decode and training steps'), c10d's in-place all-reduce
+    (``reduce_gradients``') and all-to-all (``_exchange``, Ulysses'),
+    ``_AllReduceSum`` (batch norm's sums and the router's) forward and
+    backward, its backward issued from autograd's engine, and a send and
+    receive to itself in one batch (``_shift``, ring's). Each replay's
+    outputs must be its inputs. The pipeline's own hops (a blocking send,
+    then a receive) cannot pair with themselves: the four-card pipeline
+    gang is their check."""
     import torch
+    import torch.distributed as dist
 
     from hivedscheduler_tpu_torch.models import generate
     from hivedscheduler_tpu_torch.parallel import sharding
 
     x = torch.zeros(4096, dtype=torch.bfloat16, device="cuda")
+    w = torch.zeros(4096, dtype=torch.float32, device="cuda", requires_grad=True)
 
     def collectives():
+        y = x.clone()
+        dist.all_reduce(y, group=mesh.get_group("dp"))
+        w.grad = None
+        total = sharding._AllReduceSum.apply(w, mesh, "dp")
+        total.backward(x.float())
         return torch.cat([sharding._all_gather(x, 0, mesh, "fsdp"),
                           sharding._reduce_scatter(x, 0, mesh, "fsdp"),
                           sharding._all_reduce(x, mesh, "tp"),
-                          sharding._all_reduce(x, mesh, "tp", "max")])
+                          sharding._all_reduce(x, mesh, "tp", "max"),
+                          y, sharding._exchange(x, mesh, "sp"),
+                          total.detach().to(x.dtype), w.grad.to(x.dtype),
+                          sharding._shift(x, mesh, "pp", 1)])
 
-    with torch.inference_mode():
-        replay, out = generate._capture(collectives, lambda: None)
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        replays = 3
-        for _ in range(replays):
-            x.copy_(torch.randn(x.shape, device="cuda", generator=gen))
-            replay()
-            if not torch.equal(out, x.repeat(4)):
-                raise AssertionError("a captured NCCL collective over one rank did not return "
-                                     "its replay's input")
+    replay, out = generate._capture(collectives, lambda: None)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    replays = 3
+    for _ in range(replays):
+        x.copy_(torch.randn(x.shape, device="cuda", generator=gen))
+        with torch.no_grad():
+            w.copy_(torch.randn(w.shape, device="cuda", generator=gen).to(x.dtype))
+        replay()
+        if not torch.equal(out, torch.cat([x.repeat(6), w.detach().to(x.dtype), x, x])):
+            raise AssertionError("a captured NCCL collective over one rank did not return "
+                                 "its replay's input")
     torch.cuda.synchronize()
-    log("sharded", step="nccl_capture", collectives=["all_gather", "reduce_scatter",
-                                                     "all_reduce_sum", "all_reduce_max"],
-        elements=x.numel(), dtype="bfloat16", replays=replays, outputs_equal_inputs=True)
+    log("sharded", step="nccl_capture", collectives=[
+        "all_gather", "reduce_scatter", "all_reduce_sum", "all_reduce_max",
+        "c10d_all_reduce_in_place", "c10d_all_to_all_single", "all_reduce_sum_autograd",
+        "all_reduce_sum_backward", "batch_isend_irecv_self"],
+        elements=x.numel(), dtype="bfloat16", replays=replays, outputs_equal_inputs=True,
+        nccl=".".join(map(str, torch.cuda.nccl.version())), torch=torch.__version__)
 
 
 def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict:
@@ -1669,26 +1723,37 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
             if not torch.equal(got, x):
                 raise AssertionError(f"NCCL {name} over one rank changed its input")
         nccl_capture_probe(mesh, seed)
-        # (a) Phase 5's model, seed and batch through the sharded step.
-        t0 = time.perf_counter()
+        # (a) Phase 5's model, seed and batch through the sharded step:
+        # first the eager mesh step (the plain version), then the step from
+        # the rank's captured graph, from the same seed (two trees of 8
+        # layers and their AdamW do not fit the card together). The DTensor
+        # AdamW is capturable on the card: phase 5's arithmetic.
         config = dataclasses.replace(transformer.llama3_8b(), n_layers=TRAIN["layers"],
                                      remat=True, remat_policy=TRAIN["remat_policy"])
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        # A gang's DTensor AdamW keeps its step count on the host; this one
-        # is asked for phase 5's capturable arithmetic (the step count and
-        # bias corrections on the card), which the bitwise gate compares.
-        params, optimizer = train.init_sharded(config, mesh, gen, "cuda", capturable_step=True)
         tokens = torch.from_numpy(serve.synthetic_tokens(
             np.random.default_rng(seed + 1), TRAIN["batch"], TRAIN["seq"], config.vocab_size))
         tokens = sharding.shard_batch(tokens, mesh).cuda()
+        steps = TRAIN["warmup"] + TRAIN["timed"]
+        params, optimizer = train.init_sharded(
+            config, mesh, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        eager = run_steps(lambda: train.train_step(params, optimizer, tokens, config, "cuda",
+                                                   mesh), lambda: params, steps)
+        del params, optimizer
+        _free_card()
+        t0 = time.perf_counter()
+        params, optimizer = train.init_sharded(
+            config, mesh, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        if not all(g["capturable"] for g in optimizer.param_groups):
+            raise AssertionError("the mesh's DTensor AdamW is not capturable on the card")
         step = train.make_train_step(config, mesh, optimizer)
         torch.cuda.synchronize()
         log("sharded", step="init", mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
             seconds=time.perf_counter() - t0, weights_gib=torch.cuda.memory_allocated() / 2**30)
         torch.cuda.reset_peak_memory_stats()
-        _reset_launches()
+        _reset_launches()  # the captured steps alone: the main path's count
+        _reset_train_graph_counts()
         recs = []
-        for i in range(TRAIN["warmup"] + TRAIN["timed"]):
+        for i in range(steps):
             if i == TRAIN["warmup"]:
                 # The bitwise gate: after the same steps, every leaf as phase 5's.
                 for host, leaf in zip(trained["after_warmup"], transformer.leaves(params)):
@@ -1705,8 +1770,11 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
         train_launches = entry.kernel_launches()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         losses = [r["loss"] for r in recs]
-        if losses[:TRAIN["warmup"]] != trained["losses"][:TRAIN["warmup"]]:
-            raise AssertionError(f"sharded losses {losses} differ from the unsharded "
+        captured = {"losses": losses, "step_ms": [r["step_ms"] for r in recs],
+                    "digest": train.tree_digest(params), "peak_gib": peak_gib}
+        if losses != trained["losses"] or captured["digest"] != trained["digest"]:
+            raise AssertionError(f"sharded captured losses {losses} (or the parameters' "
+                                 f"digest) differ from the unsharded captured run's "
                                  f"{trained['losses']}")
         for r in recs:
             if set(r["launches"].values()) != {config.n_layers}:
@@ -1715,13 +1783,14 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
         timed = [r["step_ms"] for r in recs[TRAIN["warmup"]:]]
         step_ms = sum(timed) / len(timed)
         log("sharded", step="train", losses=losses, bitwise_equal_unsharded=True,
-            step_ms=[r["step_ms"] for r in recs], step_ms_mean=step_ms,
-            unsharded_step_ms_mean=trained["step_ms_mean"],
+            digest_equal_unsharded=True, step_ms=[r["step_ms"] for r in recs],
+            step_ms_mean=step_ms, unsharded_step_ms_mean=trained["step_ms_mean"],
             ratio=step_ms / trained["step_ms_mean"], peak_memory_gib=peak_gib,
             launches=train_launches)
-        if profile:
-            profile_train_step(params, optimizer, tokens, config, step_ms,
-                               window="sharded_train_step", mesh=mesh)
+        check_train_graph("sharded_llama3_8b_8_layers", eager, captured, TRAIN["warmup"],
+                          profile and (lambda: profile_train_step(
+                              params, optimizer, tokens, config, step_ms,
+                              window="sharded_train_step", mesh=mesh)))
         del params, optimizer, step, tokens
         torch.cuda.empty_cache()
 
@@ -1777,17 +1846,9 @@ def phase_sharded(seed: int, profile: bool, served: dict, trained: dict) -> dict
     return {k: train_launches[k] + serve_launches[k] for k in train_launches}
 
 
-# One step line of the twin; the ranks' lines share one pipe, so they are
-# found anywhere in it, not line by line.
+# One step line of the twin (phase 12's ResNet-50 through the launcher).
 _TWIN_STEP = re.compile(
     r"step (\d+) loss ([-\d.]+) \(([\d.]+) ms, \d+ (?:tok|img)/s, launches (\{[^}]*\})\)")
-
-
-def launch_gang(module: str, argv: list, ranks: int) -> list:
-    """``module`` started by the pod's launcher on a one-pod bind info of
-    ``ranks`` cards, one process per card; returns each step line's (step,
-    loss, ms, launches) from every rank."""
-    return [m.groups() for m in _TWIN_STEP.finditer(launch_pod(module, argv, ranks))]
 
 
 def launch_pod(module: str, argv: list, ranks: int) -> str:
@@ -1822,37 +1883,414 @@ def resnet_summaries(stdout: str) -> list:
             if line.startswith("resnet summary ")]
 
 
-def check_gang(name: str, one: list, lines: list, ranks: int, launches, gated_steps=None,
+def check_gang(name: str, one: list, ranks_records: list, launches, gated_steps=None,
                **fields) -> None:
-    """Hold a launched gang's step lines to the one-card run ``one``: every
-    rank reports the same loss, within GANG_TOL of one card's in the first
-    ``gated_steps`` steps (all by default; the rest are logged with their
-    gaps), and launched each kernel ``launches`` times a step (a number, or
-    one per kernel); logs the step times."""
-    import ast
-
-    if len(lines) != ranks * len(one):
-        raise AssertionError(f"{name}: {len(lines)} step lines from {ranks} ranks")
+    """Hold a launched gang's steps (each rank's records of its captured
+    run) to the one-card run ``one``: every rank reports the same loss,
+    within GANG_TOL of one card's in the first ``gated_steps`` steps (all
+    by default; the rest are logged with their gaps), and launched each
+    kernel ``launches`` times a step (a number, or one per kernel; a replay
+    counts what its capture recorded); logs the step times (a step's: its
+    slowest rank's; the mean from step 1 on, the replays)."""
+    ranks = len(ranks_records)
+    if any(len(recs) != len(one) for recs in ranks_records):
+        raise AssertionError(f"{name}: {[len(r) for r in ranks_records]} steps from {ranks} "
+                             f"ranks, not {len(one)} each")
     losses, step_ms = [], []
     for i, r in enumerate(one):
-        mine = [st for st in lines if int(st[0]) == i]
-        got = {float(st[1]) for st in mine}
+        mine = [recs[i] for recs in ranks_records]
+        got = {st["loss"] for st in mine}
         if len(got) != 1:
             raise AssertionError(f"{name} step {i}: the ranks report different losses {got}")
         losses.append(got.pop())
         if (gated_steps is None or i < gated_steps) and abs(losses[-1] - r["loss"]) > GANG_TOL:
             raise AssertionError(f"{name} step {i}: gang loss {losses[-1]} vs one card {r['loss']}")
-        step_ms.append(max(float(st[2]) for st in mine))
+        step_ms.append(max(st["step_ms"] for st in mine))
         for st in mine:
-            got = ast.literal_eval(st[3])
-            if got != (launches if isinstance(launches, dict) else dict.fromkeys(got, launches)):
-                raise AssertionError(f"{name} step {i}: a rank launched {st[3]}, not {launches}")
+            want = launches if isinstance(launches, dict) else dict.fromkeys(st["launches"],
+                                                                             launches)
+            if st["launches"] != want:
+                raise AssertionError(f"{name} step {i}: a rank launched {st['launches']}, "
+                                     f"not {launches}")
     mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
     one_ms = sum(r["step_ms"] for r in one[1:]) / len(one[1:])
     log("gang", step=name, ranks=ranks, losses=losses, losses_one_card=[r["loss"] for r in one],
         loss_gaps=[abs(a - r["loss"]) for a, r in zip(losses, one)], tol=GANG_TOL,
-        gated_steps=gated_steps or len(one), step_ms=step_ms, step_ms_mean=mean_ms, one_card_step_ms_mean=one_ms,
-        speedup=one_ms / mean_ms, launches_per_rank_step=launches, **fields)
+        gated_steps=gated_steps or len(one), step_ms=step_ms, step_ms_mean=mean_ms,
+        one_card_step_ms_mean=one_ms, speedup=one_ms / mean_ms,
+        launches_per_rank_step=launches, **fields)
+
+
+def _twin_summary(prefix: str, stdout: str) -> dict:
+    """The twin's one ``<prefix> summary {...}`` line."""
+    (line,) = [ln for ln in stdout.splitlines() if ln.startswith(prefix + " summary ")]
+    return json.loads(line[len(prefix) + len(" summary "):])
+
+
+def _quiet_main(prefix: str, main, argv: list) -> tuple:
+    """A twin's ``main(argv)`` in this process, its output printed after it
+    ran; returns (its records, its summary line's fields)."""
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        records = main(argv)
+    print(printed.getvalue(), end="", flush=True)
+    return records, _twin_summary(prefix, printed.getvalue())
+
+
+def _longctx_argv() -> list:
+    return ["--model", LONGCTX["model"], "--layers", str(LONGCTX["layers"]),
+            "--seq", str(LONGCTX["seq"]), "--steps", str(LONGCTX["steps"])]
+
+
+def _pipeline_argv() -> list:
+    pl = PIPELINE
+    return ["--model", pl["model"], "--layers", str(pl["layers"]), "--batch", str(pl["batch"]),
+            "--seq", str(pl["seq"]), "--microbatches", str(pl["microbatches"]),
+            "--steps", str(pl["steps"])]
+
+
+def _mixtral_argv() -> list:
+    return ["--layers", str(MIXTRAL_TRAIN["layers"]), "--steps", "3"]
+
+
+def _resnet_argv(batch: int) -> list:
+    return ["--batch", str(batch), "--steps", str(RESNET_GANG["steps"])]
+
+
+def resnet_f64_run(plain: bool, mesh, device) -> dict:
+    """RESNET_F64_GANG's steps, the twin's ``train_step`` (``plain``) or
+    ``captured_step``, on ``mesh`` (this rank's rows of each global batch)
+    or on one card (None: the whole batch). Returns the losses, the
+    parameters' and running stats' digests, and their host copies."""
+    import torch
+
+    # cuDNN may pick an f64 backward that adds with atomics, which no two
+    # runs repeat bit for bit, captured or not (tests/test_torch_cuda.py's
+    # deterministic_cudnn): the eager and captured runs are compared bitwise.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _resnet_f64_steps(plain, mesh, device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _resnet_f64_steps(plain: bool, mesh, device) -> dict:
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import convert, resnet, train, transformer
+    from hivedscheduler_tpu_torch.parallel import sharding
+    from hivedscheduler_tpu_torch.workloads import train_resnet
+
+    g = RESNET_F64_GANG
+    config = resnet.ResNetConfig(**g["config"], dtype=torch.float64)
+    params, stats = resnet.init(config, torch.Generator().manual_seed(0), "cpu")
+    params, stats = (convert.params_from_jax(convert.params_to_numpy(t), device, torch.float64)
+                     for t in (params, stats))
+    if mesh is not None:
+        params = resnet.distribute(params, mesh)
+    optimizer = train_resnet.make_optimizer(params)
+    step = train_resnet.train_step if plain else train_resnet.captured_step
+    rng = np.random.default_rng(1)
+    losses = []
+    for _ in range(g["steps"]):
+        images, labels = train_resnet.synthetic_batch(rng, g["batch"], g["size"],
+                                                      config.num_classes)
+        images = images.double()
+        if mesh is not None:
+            images, labels = (sharding.shard_batch(t, mesh) for t in (images, labels))
+        loss, stats = step(params, stats, optimizer, images.to(device), labels.to(device),
+                           config, mesh)
+        losses.append(float(loss))
+    return {"losses": losses, "digest": train.tree_digest(params),
+            "stats_digest": train_resnet.stats_summary(stats)["bn_stats_digest"],
+            "leaves": [sharding.to_local(t).detach().cpu().numpy()
+                       for t in transformer.leaves(params) + transformer.leaves(stats)]}
+
+
+def profile_resnet_step(batch: int, size: int, unprofiled_ms: float, window: str,
+                        mesh=None) -> float:
+    """The ResNet-50 twin's model, seeds and first batch (on ``mesh``,
+    this rank's rows of it): the capture, a replay, then one replay under
+    the profiler; returns its idle share against ``unprofiled_ms``."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import resnet
+    from hivedscheduler_tpu_torch.parallel import sharding
+    from hivedscheduler_tpu_torch.workloads import train_resnet
+
+    config = resnet.ResNetConfig()
+    params, stats = resnet.init(config, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n = 1 if mesh is None else sharding.axes_size(sharding.BATCH_AXES, mesh)
+    if mesh is not None:
+        params = resnet.distribute(params, mesh)
+    optimizer = train_resnet.make_optimizer(params)
+    images, labels = train_resnet.synthetic_batch(np.random.default_rng(1), batch * n, size,
+                                                  config.num_classes)
+    if mesh is not None:
+        images, labels = (sharding.shard_batch(t, mesh) for t in (images, labels))
+    images, labels = images.cuda(), labels.cuda()
+
+    def resnet_step():
+        return train_resnet.captured_step(params, stats, optimizer, images, labels, config,
+                                          mesh)[0]
+
+    for _ in range(2):
+        float(resnet_step())
+    return profile_step(resnet_step, unprofiled_ms, window)
+
+
+def train_gang_job(name: str, profile: bool = False, gang_dir: str = None) -> dict:
+    """One rank of the training gang ``name``, started by the pod's
+    launcher with its per-card block: the twin's steps eagerly (its plain
+    version), then through its entry point (on the card each step after
+    the first a replay of the rank's captured graph, the step's
+    collectives inside), each from the twin's seeds. ``resnet_f64``: the
+    small f64 ResNet of RESNET_F64_GANG instead (rank 0 writes its host
+    leaves to ``gang_dir``). With ``profile``, the ResNet-50 rank's device
+    time by kernel over one more replay (every rank, in step). Returns
+    each run's records, losses, digests, graph counts and peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hivedscheduler_tpu_torch import resolve_device
+    from hivedscheduler_tpu_torch.models import train
+    from hivedscheduler_tpu_torch.parallel import mesh as pmesh
+    from hivedscheduler_tpu_torch.workloads import (train_longctx, train_mixtral, train_pp,
+                                                    train_resnet)
+    from hivedscheduler_tpu_torch.workloads.common import bootstrap_distributed, lift_env_block
+
+    lift_env_block()  # the card grant, before anything initialises CUDA
+    device = resolve_device(None)
+    bootstrap_distributed(device)
+    n = pmesh.world_size()
+
+    def run(plain: bool) -> dict:
+        if name == "resnet_f64":
+            out = resnet_f64_run(plain, pmesh.make_mesh(pmesh.MeshConfig(dp=n), device), device)
+            leaves = out.pop("leaves")
+            if dist.get_rank() == 0:
+                np.savez(os.path.join(gang_dir, f"gang_{'eager' if plain else 'captured'}.npz"),
+                         *leaves)
+            return out
+        if name == "mixtral":
+            records, summary = _quiet_main("mixtral", train_mixtral.main,
+                                           _mixtral_argv() + ["--plain"] * plain)
+            return {"records": records, "digest": summary["params_digest"]}
+        if name == "resnet":
+            records, summary = _quiet_main("resnet", train_resnet.main,
+                                           _resnet_argv(RESNET_GANG["batch"])
+                                           + ["--plain"] * plain)
+            return {"records": records, "digest": summary["params_digest"],
+                    "stats_digest": summary["bn_stats_digest"]}
+        if name == "longctx":
+            return {"records": train_longctx.main(_longctx_argv() + ["--plain"] * plain)}
+        return {"records": train_pp.main(_pipeline_argv() + ["--plain"] * plain)}
+
+    runs = {}
+    for plain in (True, False):
+        _reset_train_graph_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = run(plain)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["graph"] = {"captures": train.StepGraphs.captures,
+                        "replays": train.StepGraphs.replays,
+                        "capture_ms": train.StepGraphs.capture_s * 1e3}
+        if "records" in out:
+            out["losses"] = [r["loss"] for r in out["records"]]
+        runs["eager" if plain else "captured"] = out
+        _free_card()
+    result = {"rank": dist.get_rank(), **runs}
+    if profile and name == "resnet":
+        steps = runs["captured"]["records"][1:]
+        result["idle_share"] = profile_resnet_step(
+            RESNET_GANG["batch"], train_resnet.IMAGE_SIZE,
+            sum(r["step_ms"] for r in steps) / len(steps), f"resnet50_dp{n}_rank{dist.get_rank()}",
+            pmesh.make_mesh(pmesh.MeshConfig(dp=n), device))
+    dist.barrier()  # no rank's store goes while a peer still reads it
+    dist.destroy_process_group()
+    return result
+
+
+def job_results(stdout: str, key: str) -> list:
+    """Every rank's ``{"<key>": {...}}`` result in the ranks' shared pipe,
+    each found where it opens, not by line: one rank's object can land on
+    the line that another's ends (the four processes write one pipe)."""
+    decoder = json.JSONDecoder()
+    marker = '{"' + key + '"'
+    results, i = [], stdout.find(marker)
+    while i >= 0:
+        obj, end = decoder.raw_decode(stdout, i)
+        results.append(obj[key])
+        i = stdout.find(marker, end)
+    return results
+
+
+def launch_train_gang(name: str, ranks: int, profile: bool = False, gang_dir: str = None
+                      ) -> list:
+    """The training gang ``name`` through the pod's launcher, each rank
+    this script's ``--train-gang-job``; returns each rank's result, having
+    held every rank's captured run to its own eager run: the same losses
+    (and digests, where the twin prints them) bit for bit, one capture (at
+    the first step) and a replay a later step."""
+    out = launch_pod("chip_smoke", ["--train-gang-job", name]
+                     + (["--gang-dir", gang_dir] if gang_dir else [])
+                     + (["--profile"] if profile else []), ranks)
+    jobs = sorted(job_results(out, "train_gang_job"), key=lambda job: job["rank"])
+    if len(jobs) != ranks:
+        raise AssertionError(f"training gang {name}: {len(jobs)} results from {ranks} ranks")
+    for job in jobs:
+        eager, captured = job["eager"], job["captured"]
+        where = f"training gang {name}, rank {job['rank']}"
+        for key in ("losses", "digest", "stats_digest"):
+            if eager.get(key) != captured.get(key):
+                raise AssertionError(f"{where}: the captured run's {key} {captured.get(key)} "
+                                     f"differ from the eager run's {eager.get(key)}")
+        steps = len(captured["losses"])
+        if (captured["graph"]["captures"], captured["graph"]["replays"]) != (1, steps - 1):
+            raise AssertionError(f"{where}: {captured['graph']} over {steps} steps: one "
+                                 "capture, at the first step, then replays")
+        if eager["graph"]["captures"]:
+            raise AssertionError(f"{where}: the eager run captured {eager['graph']}")
+    return jobs
+
+
+def _gang_fields(jobs: list) -> dict:
+    """Each rank's captured-run numbers for a gang's log line."""
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    return {"captured_losses_equal_eager_every_rank": True,
+            "captures_per_rank": [job["captured"]["graph"]["captures"] for job in jobs],
+            "replays_per_rank": [job["captured"]["graph"]["replays"] for job in jobs],
+            "capture_ms_per_rank": [job["captured"]["graph"]["capture_ms"] for job in jobs],
+            "peak_gib_per_rank": [job["captured"]["peak_gib"] for job in jobs],
+            "eager_peak_gib_per_rank": [job["eager"]["peak_gib"] for job in jobs],
+            "eager_step_ms_mean_per_rank": [
+                mean([r["step_ms"] for r in job["eager"]["records"][1:]])
+                if "records" in job["eager"] else None for job in jobs]}
+
+
+def resnet_f64_gate(ranks: int) -> None:
+    """The four-card f64 ResNet gradient gate (RESNET_F64_GANG): one card
+    in this process, eager and captured (bitwise equal), then the gang at
+    dp ``ranks`` through the launcher (each rank's captured run bitwise its
+    eager run, the ranks' digests equal), held to one card within
+    F64_GANG_TOL: the losses, and every parameter and running statistic
+    after the last step."""
+    import numpy as np
+    import torch
+
+    one = {}
+    for plain in (True, False):
+        _reset_train_graph_counts()
+        one[plain] = resnet_f64_run(plain, None, torch.device("cuda"))
+    if (one[True]["losses"], one[True]["digest"], one[True]["stats_digest"]) != (
+            one[False]["losses"], one[False]["digest"], one[False]["stats_digest"]):
+        raise AssertionError("the small f64 ResNet's captured steps differ from its eager steps "
+                             "on one card")
+    _free_card()
+    gang_dir = tempfile.mkdtemp(prefix="chip_smoke_f64_")
+    try:
+        jobs = launch_train_gang("resnet_f64", ranks, gang_dir=gang_dir)
+        gang = {}
+        for run in ("eager", "captured"):
+            with np.load(os.path.join(gang_dir, f"gang_{run}.npz")) as saved:
+                gang[run] = [saved[f"arr_{i}"] for i in range(len(saved.files))]
+    finally:
+        shutil.rmtree(gang_dir, ignore_errors=True)
+    for key in ("digest", "stats_digest"):
+        if len({job["captured"][key] for job in jobs}) != 1:
+            raise AssertionError(f"resnet_f64 dp {ranks}: the ranks' {key}s differ")
+    want = one[False]
+    losses = jobs[0]["captured"]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
+    leaf_rel = {run: max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-300))
+                         for g, w in zip(gang[run], want["leaves"], strict=True))
+                for run in gang}
+    fields = {"ranks": ranks, **RESNET_F64_GANG, "losses": losses,
+              "losses_one_card": want["losses"], "loss_max_rel": loss_rel,
+              "leaf_max_rel": leaf_rel["captured"], "eager_leaf_max_rel": leaf_rel["eager"],
+              "tol": F64_GANG_TOL, "one_card_captured_equal_eager": True, **_gang_fields(jobs)}
+    if loss_rel > F64_GANG_TOL["loss_rel"] or max(leaf_rel.values()) > F64_GANG_TOL["leaf_max_rel"]:
+        raise AssertionError(f"resnet_f64 dp {ranks} vs one card: {fields}")
+    log("gang", step="resnet_f64_gate", **fields)
+
+
+def train_gang(ranks: int, profile: bool = False) -> None:
+    """The four-card training gangs: the f64 gate first, then the longctx,
+    pipeline, Mixtral and ResNet-50 twins, each on one card in this
+    process and as a gang through the launcher (``launch_train_gang``:
+    every rank's captured run bitwise its eager run), the gang's captured
+    steps held to one card by ``check_gang``."""
+    import torch
+
+    from hivedscheduler_tpu_torch.workloads import (train_longctx, train_mixtral, train_pp,
+                                                    train_resnet)
+
+    resnet_f64_gate(ranks)
+
+    one = train_longctx.main(_longctx_argv())  # this process, card 0
+    _free_card()
+    jobs = launch_train_gang("longctx", ranks)
+    mesh = train_longctx.mesh_config(ranks, train_longctx.MODELS[LONGCTX["model"]]().n_kv_heads)
+    # tp 4 keeps whole GQA groups on each rank: the kernels run once a layer.
+    check_gang("longctx", one, [job["captured"]["records"] for job in jobs], LONGCTX["layers"],
+               mesh=dataclasses.asdict(mesh),
+               tokens_per_s_one_card=LONGCTX["seq"] / (one[-1]["step_ms"] * 1e-3),
+               **_gang_fields(jobs))
+
+    # The pipeline twin: the one-card reference through its ``run`` on an
+    # inactive mesh (the twin itself refuses an odd card count).
+    pl = PIPELINE
+    config = dataclasses.replace(train_pp.MODELS[pl["model"]](), max_seq_len=pl["seq"],
+                                 n_layers=pl["layers"], remat=True, remat_policy="flash",
+                                 pp_microbatches=pl["microbatches"])
+    one = train_pp.run(config, None, torch.device("cuda"), pl["steps"], pl["batch"], pl["seq"])
+    _free_card()
+    jobs = launch_train_gang("pipeline", ranks)
+    mesh = train_pp.mesh_config(ranks, 1, config.n_kv_heads)
+    # Each stage holds layers / pp layers and runs each once a microbatch.
+    check_gang("pipeline", one, [job["captured"]["records"] for job in jobs],
+               pl["layers"] // mesh.pp * pl["microbatches"], mesh=dataclasses.asdict(mesh),
+               **pl, **_gang_fields(jobs))
+
+    # The Mixtral twin at ep 4 x fsdp 1: every rank holds all 4 rows, as
+    # one card does, and runs two of the eight experts.
+    layers = MIXTRAL_TRAIN["layers"]
+    one = train_mixtral.main(_mixtral_argv())  # this process, card 0
+    _free_card()
+    jobs = launch_train_gang("mixtral", ranks)
+    check_gang("mixtral", one, [job["captured"]["records"] for job in jobs],
+               {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers, "flash_bwd_dq": layers},
+               mesh=dataclasses.asdict(train_mixtral.mesh_config(ranks)), layers=layers,
+               batch=[train_mixtral.ROWS_PER_SHARD, train_mixtral.SEQ], **_gang_fields(jobs))
+
+    # The ResNet twin at dp 4 (BASELINE config 2) against one card at the
+    # global batch: the same images, so batch norm's statistics must be the
+    # global batch's, equal on every rank (their digest). Only the first
+    # step's loss, before any update, is held to GANG_TOL: in bf16 at random
+    # init a step of SGD at lr 0.1 moves the loss by more than two
+    # summation orders' rounding (0.03 apart after one step on four H100s);
+    # the f64 gate above holds the gang's gradients and updates.
+    rg = RESNET_GANG
+    one = train_resnet.main(_resnet_argv(rg["batch"] * ranks))
+    _free_card()
+    jobs = launch_train_gang("resnet", ranks, profile)
+    if len({job["captured"]["stats_digest"] for job in jobs}) != 1:
+        raise AssertionError(f"resnet dp {ranks}: the ranks' running stats differ")
+    check_gang("resnet", one, [job["captured"]["records"] for job in jobs], 0, gated_steps=1,
+               mesh={"dp": ranks}, batch_per_card=rg["batch"],
+               image_size=train_resnet.IMAGE_SIZE, bn_stats_equal_on_ranks=True,
+               images_per_s_one_card=rg["batch"] * ranks / (one[-1]["step_ms"] * 1e-3),
+               idle_share_per_rank=[job.get("idle_share") for job in jobs],
+               **_gang_fields(jobs))
 
 
 def phase_gang(profile: bool = False) -> int:
@@ -1860,17 +2298,14 @@ def phase_gang(profile: bool = False) -> int:
     module docstring, phase 8): every dryrun row that fits as an NCCL gang
     of 2 ranks, or 4 with four cards (the sequence rows then launch the
     kernels on every rank, and the pipeline rows on every stage); with four
-    cards, also the longctx, pipeline and Mixtral twins as the scheduler
-    would start them on a pod granted four cards: the pod's launcher on a one-pod,
-    four-card bind info, one process per card, whose losses must come
-    within GANG_TOL of the same model, seeds and batches on one card; then
-    the serving gang (:func:`serve_gang`).
+    cards, also the training gangs (:func:`train_gang`: the f64 ResNet
+    gate, then the longctx, pipeline, Mixtral and ResNet-50 twins as the
+    scheduler would start them on a pod granted four cards, each step from
+    the rank's captured graph) and the serving gangs (:func:`serve_gang`).
     Returns the ranks of the gang (1, and nothing run, on one card)."""
     import torch
 
     from hivedscheduler_tpu_torch.tools import dryrun
-    from hivedscheduler_tpu_torch.workloads import (train_longctx, train_mixtral, train_pp,
-                                                    train_resnet)
 
     count = torch.cuda.device_count()
     if count < 2:
@@ -1887,64 +2322,7 @@ def phase_gang(profile: bool = False) -> int:
                                  f"not {result['expected'][row]} each")
     if ranks < 4:
         return ranks
-    argv = ["--model", LONGCTX["model"], "--layers", str(LONGCTX["layers"]),
-            "--seq", str(LONGCTX["seq"]), "--steps", str(LONGCTX["steps"])]
-    one = train_longctx.main(argv)  # this process, card 0
-    torch.cuda.empty_cache()
-    steps = launch_gang("hivedscheduler_tpu_torch.workloads.train_longctx", argv, ranks)
-    mesh = train_longctx.mesh_config(ranks, train_longctx.MODELS[LONGCTX["model"]]().n_kv_heads)
-    # tp 4 keeps whole GQA groups on each rank: the kernels run once a layer.
-    check_gang("longctx", one, steps, ranks, LONGCTX["layers"], mesh=dataclasses.asdict(mesh),
-               tokens_per_s_one_card=LONGCTX["seq"] / (one[-1]["step_ms"] * 1e-3))
-
-    # The pipeline twin: the one-card reference through its ``run`` on an
-    # inactive mesh (the twin itself refuses an odd card count).
-    pl = PIPELINE
-    base = train_pp.MODELS[pl["model"]]()
-    config = dataclasses.replace(base, max_seq_len=pl["seq"], n_layers=pl["layers"], remat=True,
-                        remat_policy="flash", pp_microbatches=pl["microbatches"])
-    one = train_pp.run(config, None, torch.device("cuda"), pl["steps"], pl["batch"], pl["seq"])
-    torch.cuda.empty_cache()
-    argv = ["--model", pl["model"], "--layers", str(pl["layers"]), "--batch", str(pl["batch"]),
-            "--seq", str(pl["seq"]), "--microbatches", str(pl["microbatches"]),
-            "--steps", str(pl["steps"])]
-    steps = launch_gang("hivedscheduler_tpu_torch.workloads.train_pp", argv, ranks)
-    mesh = train_pp.mesh_config(ranks, 1, base.n_kv_heads)
-    # Each stage holds layers / pp layers and runs each once a microbatch.
-    check_gang("pipeline", one, steps, ranks, pl["layers"] // mesh.pp * pl["microbatches"],
-               mesh=dataclasses.asdict(mesh), **pl)
-
-    # The Mixtral twin at ep 4 x fsdp 1: every rank holds all 4 rows, as
-    # one card does, and runs two of the eight experts.
-    layers = MIXTRAL_TRAIN["layers"]
-    argv = ["--layers", str(layers), "--steps", "3"]
-    one = train_mixtral.main(argv)  # this process, card 0
-    torch.cuda.empty_cache()
-    steps = launch_gang("hivedscheduler_tpu_torch.workloads.train_mixtral", argv, ranks)
-    check_gang("mixtral", one, steps, ranks,
-               {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers, "flash_bwd_dq": layers},
-               mesh=dataclasses.asdict(train_mixtral.mesh_config(ranks)), layers=layers,
-               batch=[train_mixtral.ROWS_PER_SHARD, train_mixtral.SEQ])
-
-    # The ResNet twin at dp 4 (BASELINE config 2) against one card at the
-    # global batch: the same images, so batch norm's statistics must be the
-    # global batch's, equal on every rank (their digest). Only the first
-    # step's loss, before any update, is held to GANG_TOL: in bf16 at random
-    # init a step of SGD at lr 0.1 moves the loss by more than two
-    # summation orders' rounding (0.03 apart after one step on four H100s).
-    rg = RESNET_GANG
-    one = train_resnet.main(["--batch", str(rg["batch"] * ranks), "--steps", str(rg["steps"])])
-    torch.cuda.empty_cache()
-    out = launch_pod("hivedscheduler_tpu_torch.workloads.train_resnet",
-                     ["--batch", str(rg["batch"]), "--steps", str(rg["steps"])], ranks)
-    digests = {r["bn_stats_digest"] for r in resnet_summaries(out)}
-    if len(resnet_summaries(out)) != ranks or len(digests) != 1:
-        raise AssertionError(f"resnet dp {ranks}: the ranks' running stats differ: {digests}")
-    check_gang("resnet", one, [m.groups() for m in _TWIN_STEP.finditer(out)], ranks, 0,
-               gated_steps=1, mesh={"dp": ranks}, batch_per_card=rg["batch"], image_size=train_resnet.IMAGE_SIZE,
-               bn_stats_equal_on_ranks=True,
-               images_per_s_one_card=rg["batch"] * ranks / (one[-1]["step_ms"] * 1e-3))
-
+    train_gang(ranks, profile)
     serve_gang(ranks, profile)
     return ranks
 
@@ -2090,8 +2468,7 @@ def serve_gang(ranks: int, profile: bool = False) -> None:
             torch.cuda.empty_cache()
         out = launch_pod("chip_smoke", ["--serve-gang-job", name]
                          + (["--profile"] if profile else []), ranks)
-        jobs = [json.loads(line)["serve_gang_job"] for line in out.splitlines()
-                if line.startswith('{"serve_gang_job"')]
+        jobs = job_results(out, "serve_gang_job")
         if len(jobs) != ranks:
             raise AssertionError(f"serving gang {name}: {len(jobs)} results from {ranks} ranks")
         layers = int(_argv_value(argv, "--layers", serve.MODELS[model]().n_layers))
@@ -2562,25 +2939,9 @@ def phase_zoo(seed: int, profile: bool) -> dict:
         images_per_s=rn["batch"] / (step_ms * 1e-3),
         **{k: v for k, v in summary[0].items() if k not in ("losses", "graph")})
 
-    def profile_resnet():
-        # The twin's model, seeds and first batch in this process: the
-        # capture, a replay, then one replay under the profiler.
-        config = resnet.ResNetConfig()
-        params, stats = resnet.init(config, torch.Generator(device="cuda").manual_seed(0), "cuda")
-        optimizer = train_resnet.make_optimizer(params)
-        images, labels = (t.cuda() for t in train_resnet.synthetic_batch(
-            np.random.default_rng(1), rn["batch"], rn["size"], config.num_classes))
-
-        def resnet_step():
-            return train_resnet.captured_step(params, stats, optimizer, images, labels,
-                                              config)[0]
-
-        for _ in range(2):
-            float(resnet_step())
-        return profile_step(resnet_step, step_ms, "resnet50_step")
-
     check_train_graph("resnet50", runs[True], runs[False], rn["warmup"],
-                      profile and profile_resnet)
+                      profile and (lambda: profile_resnet_step(rn["batch"], rn["size"], step_ms,
+                                                               "resnet50_step")))
     _free_card()
 
     # (c) The MNIST twin on the card (its steps replay one captured graph),
@@ -2633,9 +2994,9 @@ def port_kernel_rows(rows) -> list:
 
 def profile_train_step(params, optimizer, tokens, config, unprofiled_ms: float,
                        window: str = "train_step", mesh=None) -> float:
-    """Device time by kernel over one training step (sharded on ``mesh``,
-    eager there; on one card a replay of the captured step); the idle share
-    (returned) is taken against the mean unprofiled step time."""
+    """Device time by kernel over one training step, a replay of the
+    captured step (sharded on ``mesh``); the idle share (returned) is taken
+    against the mean unprofiled step time."""
     from hivedscheduler_tpu_torch.models import train
 
     return profile_step(lambda: train.captured_step(params, optimizer, tokens, config,
@@ -2758,6 +3119,8 @@ def main() -> int:
                              "needs two cards or more")
     parser.add_argument("--workloads-job", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--serve-gang-job", metavar="NAME", help=argparse.SUPPRESS)
+    parser.add_argument("--train-gang-job", metavar="NAME", help=argparse.SUPPRESS)
+    parser.add_argument("--gang-dir", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -2769,9 +3132,15 @@ def main() -> int:
         print(json.dumps({"workloads_job": workloads_job(args.seed, args.workloads_job)}),
               flush=True)
         return 0
+    if args.train_gang_job:  # a training gang's rank, started by the launcher
+        result = train_gang_job(args.train_gang_job, args.profile, args.gang_dir)
+        sys.stdout.flush()  # the result goes to the shared pipe in a write of its own
+        print(json.dumps({"train_gang_job": result}), flush=True)
+        return 0
     if args.serve_gang_job:  # a serving gang's rank, started by the launcher
-        print(json.dumps({"serve_gang_job": serve_gang_job(args.serve_gang_job, args.profile)}),
-              flush=True)
+        result = serve_gang_job(args.serve_gang_job, args.profile)
+        sys.stdout.flush()
+        print(json.dumps({"serve_gang_job": result}), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

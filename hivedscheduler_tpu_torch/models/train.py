@@ -11,13 +11,15 @@ stages, dp and sp replicating), the batch is each rank's rows and, with
 sp > 1, its shard of the columns; the step's collectives are
 ``parallel/sharding.py``'s and, with pp > 1, ``parallel/pipeline.py``'s.
 
-On one card a step runs from a CUDA graph (:class:`StepGraphs`, found by
+On CUDA a step runs from a CUDA graph (:class:`StepGraphs`, found by
 :func:`step_graphs`; :func:`captured_step` for this model, each twin's
-``captured_step`` for its own): the counterpart of the JAX package's
-``jax.jit(train_step, donate_argnums=(0, 1))``, one graph a batch shape
-and dtype, the parameters and the optimizer's state updated in place. The
-eager ``train_step`` is its plain version: the CPU's path and the
-reference the graph is held to.
+``captured_step`` for its own), on one card or on each rank of a mesh: the
+counterpart of the JAX package's ``jax.jit(train_step, donate_argnums=(0,
+1))`` and, on a mesh, of its sharded ``make_train_step``. One graph a
+batch shape and dtype (and mesh) holds the whole step, the step's NCCL
+collectives included; the parameters and the optimizer's state are updated
+in place. The eager ``train_step`` is its plain version: the CPU's path and
+the reference the graph is held to.
 """
 
 from __future__ import annotations
@@ -155,12 +157,11 @@ def _sp_targets(tokens: torch.Tensor, mesh: Any) -> torch.Tensor:
 def capturable(leaves: Sequence[torch.Tensor], asked: Optional[bool] = None) -> bool:
     """Whether an Adam over ``leaves`` keeps its step count and bias
     corrections on the card (``capturable=True``), so that a CUDA graph
-    can hold its update: ``asked`` when given, else for plain CUDA tensors
-    (on the CPU and for DTensor leaves, a gang's, the step count stays a
-    CPU scalar)."""
+    can hold its update: ``asked`` when given, else for CUDA tensors, a
+    gang's DTensors too (on the CPU the step count stays a CPU scalar)."""
     if asked is not None:
         return asked
-    return all(t.is_cuda and not isinstance(t, DTensor) for t in leaves)
+    return all(t.is_cuda for t in leaves)
 
 
 def quiet_if_capturable(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
@@ -179,7 +180,7 @@ def make_optimizer(
     """AdamW over every leaf (no mask), with ``optax.adamw``'s settings:
     b1 0.9, b2 0.95, eps 1e-8. Torch's decoupled decay p -= lr * wd * p is
     optax's ``add_decayed_weights`` then ``scale(-lr)``. Marks every leaf as
-    requiring grad. On plain CUDA leaves (or with ``capturable_step=True``)
+    requiring grad. On CUDA leaves (or with ``capturable_step=True``)
     it is capturable: the step count and the bias corrections live on the
     card in f32, as ``optax.adamw`` computes them, and the eager step and
     the captured one run the same arithmetic."""
@@ -243,21 +244,19 @@ def init_sharded(
     learning_rate: float = 3e-4,
     weight_decay: float = 0.1,
     model: Any = transformer,
-    capturable_step: Optional[bool] = None,
 ) -> Tuple[Params, torch.optim.AdamW]:
     """f32 master parameters straight into their placements
     (``model.init_distributed``, ``transformer`` by default: no rank ever
     holds more than one whole leaf, and the values are ``model.init``'s
     from the same generator) and their AdamW, whose moments take the
-    placements of :func:`shardings_for` (``capturable_step`` as in
-    :func:`make_optimizer`). Returns (params, optimizer). On an inactive
+    placements of :func:`shardings_for`. Returns (params, optimizer). On an inactive
     mesh (one process, no group) they are ``model.init``'s plain tensors,
     for the unsharded step."""
     if sharding.is_active(mesh):
         params = model.init_distributed(config, mesh, generator, device, torch.float32)
     else:
         params = model.init(config, generator, device, torch.float32)
-    return params, make_optimizer(params, learning_rate, weight_decay, capturable_step)
+    return params, make_optimizer(params, learning_rate, weight_decay)
 
 
 def make_train_step(
@@ -265,7 +264,11 @@ def make_train_step(
 ) -> Callable[[Params, torch.Tensor], torch.Tensor]:
     """The step on ``mesh``, ``step(params, tokens) -> loss``: ``tokens``
     are this rank's rows (``sharding.shard_batch``), the loss the global
-    mean. On an inactive mesh (one process) it is :func:`captured_step`."""
+    mean. It is :func:`captured_step`: on CUDA each rank replays its graph
+    of the whole sharded step (JAX's jitted, donating step with its
+    shardings), on an active mesh or an inactive one (one process); it
+    raises, as :func:`captured_step` does, for a step that
+    :func:`takes_ulysses`."""
     device = mesh.device_type
 
     def step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -375,25 +378,32 @@ class _Graph:
 
 class StepGraphs:
     """The captured training steps of one parameter tree and its optimizer
-    on one card: the port's counterpart of JAX's compile cache for a
-    jitted, donating train step. Made and found by :func:`step_graphs`.
-    It holds, for each (step kind, batch shapes and dtypes), the static
-    input buffers and one graph that runs the whole step: forward (the
-    flash kernels and the remat policy's recompute inside), backward, the
-    optimizer's in-place update of the f32 masters and, for a step with
-    state (ResNet's batch statistics), the copy of the new state into the
-    state tree.
+    on one card, or on one rank of a mesh: the port's counterpart of JAX's
+    compile cache for a jitted, donating train step. Made and found by
+    :func:`step_graphs`. It holds, for each (step kind and mesh, batch
+    shapes and dtypes), the static input buffers and one graph that runs
+    the whole step: forward (the flash kernels and the remat policy's
+    recompute inside), backward, on a mesh the step's collectives (the
+    fsdp gathers and reduce-scatters, tp's and ep's all-reduces, batch
+    norm's sums, the gradients' reductions, the loss's mean, a pipeline's
+    sends and receives), the optimizer's in-place update of the f32
+    masters and, for a step with state (ResNet's batch statistics), the
+    copy of the new state into the state tree. On a mesh every rank makes
+    the same collectives in the same order at the warm-up, at the capture
+    and at each replay, as the eager step does; the warm-up also makes the
+    communicators, which a capture cannot.
 
     The first call of a shape runs the real step eagerly on a side stream
     (the warm-up a capture needs; it also makes the optimizer's lazy
     state), then captures it, which executes nothing, and returns the
     eager step's loss; its gradients stay in the leaves' ``.grad`` until
     the next step, as ``train_step`` leaves them (copied into the graph's
-    gradient buffers; they wait on the host during the capture, so that
-    the capture's peak memory is the eager step's). Every later call copies
-    its batch into the static buffers and replays: no step runs twice and
-    the trajectory is the eager one. The loss returned is a copy of the
-    graph's output, which the next replay overwrites.
+    gradient buffers; they wait on the host during the capture, a DTensor
+    gradient's local shard, so that the capture's peak memory is the eager
+    step's). Every later call copies its batch into the static buffers and
+    replays: no step runs twice and the trajectory is the eager one. The
+    loss returned is a copy of the graph's output, which the next replay
+    overwrites.
 
     A replay runs no Python: the kernels' launch counts
     (``ops.attention.kernel_launches``) are those the capture recorded,
@@ -449,7 +459,7 @@ class StepGraphs:
         # its own buffers: beside them, the capture's peak would be the
         # eager step's plus a copy of every gradient (more than 80 GB at
         # Mixtral's widths).
-        warm = [None if leaf.grad is None else _to_host(leaf.grad) for leaf in leaves]
+        warm = [None if leaf.grad is None else _to_host(_local(leaf.grad)) for leaf in leaves]
         for leaf in leaves:
             leaf.grad = None  # so that the captured backward assigns them
         if self.device.type == "cuda":
@@ -468,11 +478,25 @@ class StepGraphs:
         # graph's buffers, which its replays write.
         for leaf, grad, w in zip(leaves, graph.grads, warm):
             if grad is None:
-                leaf.grad = None if w is None else w.to(leaf.device)
+                leaf.grad = None if w is None else _like(leaf, w.to(leaf.device))
             elif w is not None:
-                grad.copy_(w, non_blocking=True)
+                _local(grad).copy_(w, non_blocking=True)
         self._current = graph
         return loss, state
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(leaf: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` as ``leaf``'s gradient: for a DTensor leaf, a DTensor of
+    the leaf's mesh, placements and global shape over ``local``."""
+    if not isinstance(leaf, DTensor):
+        return local
+    return DTensor.from_local(local, leaf.device_mesh, leaf.placements, run_check=False,
+                              shape=leaf.shape, stride=leaf.stride())
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -515,6 +539,20 @@ def step_graphs(params: Any, optimizer: torch.optim.Optimizer) -> StepGraphs:
     return owner
 
 
+def takes_ulysses(config: transformer.TransformerConfig, mesh: Any, seq: int,
+                  on_cuda: bool = True) -> bool:
+    """Whether the step of ``config`` on ``mesh`` attends over sp by
+    Ulysses at the global length ``seq`` (``sharding.sp_backend``; "auto"
+    takes it on the card where the heads divide). Such a step is not
+    captured yet: on four H100s the warm-up of a captured Ulysses step hung
+    in its backward (ROADMAP queue 1 item 20). :func:`captured_step`
+    refuses it; its callers take the eager :func:`train_step` by name."""
+    if not sharding.is_active(mesh) or sharding.axes_size("sp", mesh) == 1:
+        return False
+    return sharding.sp_backend(mesh, config.n_heads, config.n_kv_heads, seq, config.sp_mode,
+                               on_cuda) == "ulysses"
+
+
 def captured_step(
     params: Params,
     optimizer: torch.optim.Optimizer,
@@ -524,13 +562,18 @@ def captured_step(
     mesh: Any = None,
 ) -> torch.Tensor:
     """:func:`train_step` from the captured graph of ``params``' owner
-    (:func:`step_graphs`) for ``tokens``' shape, the batch copied into its
-    static int64 buffer before each replay. The eager ``train_step`` runs
-    for CPU parameters and on an active mesh (a gang's step is not
-    captured yet). Returns the loss (a copy, not synchronised)."""
+    (:func:`step_graphs`) for ``tokens``' shape and ``mesh``, the batch
+    copied into its static int64 buffer before each replay; on an active
+    mesh the graph holds the rank's whole sharded step, its collectives
+    included. The eager ``train_step`` runs for CPU parameters. Raises for
+    a step that :func:`takes_ulysses`. Returns the loss (a copy, not
+    synchronised)."""
     device = resolve_device(device)
-    if sharding.is_active(mesh) or not _graphed(transformer.leaves(params)[0]):
+    if not _graphed(transformer.leaves(params)[0]):
         return train_step(params, optimizer, tokens, config, device, mesh)
+    if takes_ulysses(config, mesh, tokens.shape[1] * sharding.axes_size("sp", mesh)):
+        raise NotImplementedError("a step whose attention over sp is Ulysses' is not captured "
+                                  "(ROADMAP queue 1 item 20): call train_step")
     return step_graphs(params, optimizer).step(
-        ("llama", config), lambda t: train_step(params, optimizer, t, config, device),
+        ("llama", config, mesh), lambda t: train_step(params, optimizer, t, config, device, mesh),
         params, (tokens.to(torch.long),))[0]

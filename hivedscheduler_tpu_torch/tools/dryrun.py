@@ -6,11 +6,11 @@
 Spawns an n-process gang (NCCL on CUDA, one card a rank, unless
 ``--device cpu`` asks for gloo on the CPU; with no CUDA and no device it
 raises before any process starts, as every entry point of the port does),
-and each row of layouts takes one sharded train step of the ``tiny`` model
-from seed 0 on all-zero tokens, at least 4 rows of 256 rounded up to a
-multiple of dp x fsdp (identical rows keep the mean loss comparable across
-batch sizes). Each row's loss must lie within ``TOL`` of the one-process
-step on 4 rows; a row that diverges raises. Rows:
+and each row of layouts takes one eager sharded train step of the
+``tiny`` model from seed 0 on all-zero tokens, at least 4 rows of 256
+rounded up to a multiple of dp x fsdp (identical rows keep the mean loss
+comparable across batch sizes). Each row's loss must lie within ``TOL``
+of the one-process step on 4 rows; a row that diverges raises. Rows:
 
 - ``fsdp_sp_tp``: the JAX dryrun's main row, tp 2 and sp 2 where they
   fit, the rest fsdp; under sp_mode "auto" its attention over sp is ring
@@ -192,8 +192,10 @@ def _worker(rank: int, world: int, port: int, device: str, rows: Sequence[str]) 
             else:
                 config, params, optimizer = _params(device, mesh, SP_MODE.get(row, "auto"))
                 tokens = sharding.shard_batch(_tokens(_rows(sizes)), mesh)
-                step = train.make_train_step(config, mesh, optimizer)
-                losses[row] = float(step(params, tokens))
+                # One step a row: the eager sharded step (a captured step's
+                # first call is this step, run as the capture's warm-up).
+                losses[row] = float(train.train_step(params, optimizer, tokens, config, device,
+                                                     mesh))
             launches[row] = {k: v - before[k] for k, v in kernel_launches().items()}
     finally:
         dist.destroy_process_group()

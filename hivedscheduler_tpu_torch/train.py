@@ -18,9 +18,10 @@ comes from seed 1 as in ``train_llama.py``), read and copied to the card
 ahead of the step (on a side stream; the step copies it into its graph's
 static buffer on the current stream, which waits for that copy first);
 without it every step takes the same synthetic batch, as the JAX
-package's ``perf.bench_train_step`` does. On one card every step
+package's ``perf.bench_train_step`` does. On the card every step
 runs from the CUDA graph captured at the first step of its shape
-(``models/train.captured_step``, as JAX jits the step): the first step
+(``models/train.captured_step``, as JAX jits the step; on a gang each
+rank's graph holds its sharded step, collectives included): the first step
 runs eagerly and captures, every later one copies its batch into the
 graph's static buffer and replays. Each step prints its loss, its time
 (host clock around a device sync), tokens/s, on CUDA the share of the
@@ -103,11 +104,11 @@ def run(
     """Take ``steps`` AdamW steps (a new ``make_optimizer`` unless one is
     given), each on the next of ``tokens``' batches, or on ``tokens`` itself
     when it is one [B, S] tensor, through ``models/train.captured_step``
-    (on one card, from the graph of the batch's shape); yield one record a
+    (on the card, from the graph of the batch's shape); yield one record a
     step: loss, step_ms, tokens_per_s, peak_share (CUDA only), launches and
     captured (whether the step captured its graph). On an active ``mesh``
-    the step is eager, the batches are this rank's rows, tokens/s and the
-    peak share this rank's, and the loss the global batch's."""
+    the batches are this rank's rows, tokens/s and the peak share this
+    rank's, and the loss the global batch's."""
     batches = itertools.repeat(tokens) if isinstance(tokens, torch.Tensor) else iter(tokens)
     optimizer = optimizer or train.make_optimizer(params)
     n_param = perf.n_params(params)

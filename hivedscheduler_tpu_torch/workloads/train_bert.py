@@ -11,8 +11,9 @@ seed 1 and masks 15% of its positions: a masked position's token becomes
 [MASK] (103) and its target the original token; every other target is
 -100. AdamW with ``optax.adamw(1e-4)``'s settings on every leaf: lr 1e-4,
 betas (0.9, 0.999), eps 1e-8, weight decay 1e-4. The weights come from
-seed 0. Prints ``step i mlm loss x`` each step. On one card each step
-replays the CUDA graph captured at the first (``captured_step``).
+seed 0. Prints ``step i mlm loss x`` each step. On the card each step
+replays the CUDA graph captured at the first (``captured_step``), on one
+card or on each rank of the gang.
 
 The port adds ``--steps``, ``--layers`` (cut the depth, widths kept) and
 ``--device``. One process keeps the unsharded step.
@@ -43,7 +44,7 @@ MASK_ID, MASK_RATE, IGNORE = 103, 0.15, -100
 def make_optimizer(params: bert.Params, learning_rate: float = 1e-4) -> torch.optim.AdamW:
     """AdamW over every leaf with ``optax.adamw(learning_rate)``'s defaults
     (betas 0.9 / 0.999, eps 1e-8, weight decay 1e-4). Marks every leaf as
-    requiring grad. Capturable on plain CUDA leaves, as
+    requiring grad. Capturable on CUDA leaves (a gang's DTensors too), as
     ``models/train.make_optimizer``."""
     leaves = transformer.leaves(params)
     for t in leaves:
@@ -81,14 +82,15 @@ def captured_step(params: bert.Params, optimizer: torch.optim.Optimizer, tokens:
                   targets: torch.Tensor, config: bert.BertConfig, mesh: Any = None
                   ) -> torch.Tensor:
     """:func:`train_step` from the captured graph of ``params``' owner
-    (``models/train.step_graphs``) for the batch's shape, ``tokens`` and
-    ``targets`` its static inputs; the eager step for CPU parameters and
-    on an active mesh."""
-    if sharding.is_active(mesh) or not train._graphed(transformer.leaves(params)[0]):
+    (``models/train.step_graphs``) for the batch's shape and ``mesh``,
+    ``tokens`` and ``targets`` its static inputs (on an active mesh, the
+    rank's sharded step with its collectives); the eager step for CPU
+    parameters."""
+    if not train._graphed(transformer.leaves(params)[0]):
         return train_step(params, optimizer, tokens, targets, config, mesh)
     return train.step_graphs(params, optimizer).step(
-        ("bert", config), lambda t, y: train_step(params, optimizer, t, y, config), params,
-        (tokens, targets))[0]
+        ("bert", config, mesh), lambda t, y: train_step(params, optimizer, t, y, config, mesh),
+        params, (tokens, targets))[0]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:

@@ -19,10 +19,13 @@ keys do.
 
 The JAX twin's flags (``--steps``, ``--seq``, ``--model``) plus the port's
 ``--layers`` (cut the depth, widths kept) and ``--device``, as
-``train.main`` has them. Blocks are checkpointed under remat "flash", the
-port's ``train.main`` default: the flash forward's outputs are kept, so
-every step launches each kernel once a layer. One process keeps the
-unsharded step.
+``train.main`` has them, and ``--plain`` (the eager step on the card
+too). Blocks are checkpointed under remat "flash", the port's
+``train.main`` default: the flash forward's outputs are kept, so every
+step launches each kernel once a layer. One process keeps the
+unsharded step. On the card each step replays the CUDA graph that each
+rank captured at the first (``models/train.make_train_step``), but for a
+Ulysses layout, whose step stays eager (``models/train.takes_ulysses``).
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
                         help="cut the depth to this many layers (widths stay)")
     parser.add_argument("--device", default=None,
                         help="default cuda; 'cpu' runs the plain versions")
+    parser.add_argument("--plain", action="store_true",
+                        help="the eager step on the card too (the captured step's plain "
+                             "version)")
     args = parser.parse_args(argv)
 
     lift_env_block()  # the card grant, before anything initialises CUDA
@@ -74,15 +80,27 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
                                  remat=True, remat_policy="flash")
     layout = mesh_config(n, config.n_kv_heads)
     mesh = pmesh.make_mesh(layout, device)
+    print(f"longctx {args.model}: {config.n_layers} layers, seq {args.seq}, mesh sp "
+          f"{layout.sp} x tp {layout.tp} on {device}", flush=True)
+    return run(config, mesh, device, args.steps, args.seq, args.plain)
+
+
+def run(config: transformer.TransformerConfig, mesh, device: torch.device, steps: int,
+        seq: int, plain: bool = False) -> List[Dict[str, object]]:
+    """``steps`` steps from seed 0's weights on seed 1's rows through
+    ``models/train.make_train_step`` (on the card, each rank's replay of
+    the graph captured at the first step, tp's all-reduces inside), or the
+    eager ``train_step`` with ``plain`` and where the step
+    ``train.takes_ulysses`` (not captured yet). Returns each step's loss,
+    ms, tokens/s and kernel launches, and prints them."""
     gen = torch.Generator(device=device).manual_seed(0)
     params, optimizer = train.init_sharded(config, mesh, gen, device)
     step = train.make_train_step(config, mesh, optimizer)
-    print(f"longctx {args.model}: {config.n_layers} layers, seq {args.seq}, mesh sp "
-          f"{layout.sp} x tp {layout.tp} on {device}", flush=True)
+    plain = plain or train.takes_ulysses(config, mesh, seq, device.type == "cuda")
     rng = np.random.default_rng(1)
     records = []
-    for i in range(args.steps):
-        tokens = torch.from_numpy(synthetic_tokens(rng, 1, args.seq, config.vocab_size))
+    for i in range(steps):
+        tokens = torch.from_numpy(synthetic_tokens(rng, 1, seq, config.vocab_size))
         if sharding.is_active(mesh):
             tokens = sharding.shard_batch(tokens, mesh)
         tokens = tokens.to(device)
@@ -90,11 +108,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        loss = float(step(params, tokens))  # the scalar's fetch syncs the card
+        # The scalar's fetch syncs the card.
+        loss = float(train.train_step(params, optimizer, tokens, config, device, mesh) if plain
+                     else step(params, tokens))
         seconds = time.perf_counter() - t0
         after = kernel_launches()
         rec = {"step": i, "loss": loss, "step_ms": seconds * 1e3,
-               "tokens_per_s": args.seq / seconds,
+               "tokens_per_s": seq / seconds,
                "launches": {k: after[k] - before[k] for k in after}}
         records.append(rec)
         print(f"step {i} loss {loss:.6f} ({rec['step_ms']:.1f} ms, "

@@ -13,8 +13,9 @@ of 4 rows per batch shard (4 * dp * fsdp) of 4096 synthetic tokens and
 prints ``step i loss x``. AdamW with ``optax.adamw(1e-4)``'s settings on
 every leaf; the weights come from seed 0 and the rows from seed 1. The
 loss is ``mixtral.lm_loss``: the cross entropy plus 0.01 times the
-routers' load-balancing loss. On one card each step replays the CUDA graph
-captured at the first (``captured_step``).
+routers' load-balancing loss. On the card each step replays the CUDA graph
+captured at the first (``captured_step``), on one card or on each rank of
+the gang.
 
 The port adds ``--steps``, ``--layers`` (cut the depth, widths kept),
 ``--model`` (``tiny`` for smoke tests), ``--seq``, ``--device`` and
@@ -76,14 +77,16 @@ def captured_step(params: mixtral.Params, optimizer: torch.optim.Optimizer,
                   mesh: Any = None) -> torch.Tensor:
     """:func:`train_step` from the captured graph of ``params``' owner
     (``models/train.step_graphs``) for ``tokens``' shape, copied into its
-    static int64 buffer; the eager step for CPU parameters and on an active
-    mesh. The routing reads nothing back to the host and its shapes come
-    from the batch's, so one graph serves every batch of a shape."""
-    if sharding.is_active(mesh) or not train._graphed(transformer.leaves(params)[0]):
+    static int64 buffer; the eager step for CPU parameters. The routing
+    reads nothing back to the host and its shapes come from the batch's, so
+    one graph serves every batch of a shape. On an active mesh the graph
+    holds the rank's sharded step: ``copy_to`` and ``reduce_from`` over ep,
+    the router's gathers and sums, the fsdp gathers and reduce-scatters."""
+    if not train._graphed(transformer.leaves(params)[0]):
         return train_step(params, optimizer, tokens, config, mesh)
     return train.step_graphs(params, optimizer).step(
-        ("mixtral", config), lambda t: train_step(params, optimizer, t, config), params,
-        (tokens.to(torch.long),))[0]
+        ("mixtral", config, mesh), lambda t: train_step(params, optimizer, t, config, mesh),
+        params, (tokens.to(torch.long),))[0]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:

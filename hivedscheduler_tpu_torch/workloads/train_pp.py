@@ -16,11 +16,15 @@ cards per stage, and stages that do not divide the layers.
 
 The JAX twin's flags (``--steps``, ``--batch``, ``--seq``, ``--model``,
 ``--microbatches``, ``--sp``) plus the port's ``--layers`` (cut the depth,
-widths kept) and ``--device``. The weights come from seed 0, and each step
+widths kept), ``--device`` and ``--plain`` (the eager step on the card
+too). The weights come from seed 0, and each step
 draws a new synthetic batch [batch, seq] from seed 1, as the JAX twin's
 keys do. Blocks are checkpointed under remat "flash" (the JAX twin: "full";
 the values are the same): every step launches each kernel once a layer a
-microbatch on each stage.
+microbatch on each stage. On the card each step replays the CUDA graph
+that each rank captured at the first (``models/train.captured_step``),
+but for a Ulysses layout, whose step stays eager
+(``models/train.takes_ulysses``).
 """
 
 from __future__ import annotations
@@ -58,13 +62,20 @@ def mesh_config(n: int, sp: int, n_kv_heads: int) -> pmesh.MeshConfig:
 
 
 def run(config: transformer.TransformerConfig, mesh, device: torch.device, steps: int,
-        batch: int, seq: int) -> List[Dict[str, object]]:
+        batch: int, seq: int, plain: bool = False) -> List[Dict[str, object]]:
     """``steps`` steps from seed 0's weights on seed 1's batches: the
     sharded step on an active mesh, the one-process step otherwise (the
-    same model, seeds and batches, to hold a gang against). Returns each
+    same model, seeds and batches, to hold a gang against), each through
+    ``models/train.captured_step`` (on the card, a replay of the graph
+    captured at the first step: on a mesh each stage's graph holds its
+    part of the schedule, its sends and receives included), or the eager
+    ``train_step`` with ``plain`` and where the step
+    ``train.takes_ulysses`` (``--sp``; not captured yet). Returns each
     step's loss, ms, tokens/s and kernel launches, and prints them."""
     gen = torch.Generator(device=device).manual_seed(0)
     params, optimizer = train.init_sharded(config, mesh, gen, device)
+    eager = plain or train.takes_ulysses(config, mesh, seq, device.type == "cuda")
+    step = train.train_step if eager else train.captured_step
     rng = np.random.default_rng(1)
     records = []
     for i in range(steps):
@@ -77,7 +88,7 @@ def run(config: transformer.TransformerConfig, mesh, device: torch.device, steps
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         # The scalar's fetch syncs the card.
-        loss = float(train.train_step(params, optimizer, tokens, config, device, mesh))
+        loss = float(step(params, optimizer, tokens, config, device, mesh))
         seconds = time.perf_counter() - t0
         after = kernel_launches()
         rec = {"step": i, "loss": loss, "step_ms": seconds * 1e3,
@@ -103,6 +114,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
                         help="cut the depth to this many layers (widths stay)")
     parser.add_argument("--device", default=None,
                         help="default cuda; 'cpu' runs the plain versions")
+    parser.add_argument("--plain", action="store_true",
+                        help="the eager step on the card too (the captured step's plain "
+                             "version)")
     args = parser.parse_args(argv)
 
     lift_env_block()  # the card grant, before anything initialises CUDA
@@ -118,7 +132,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
         raise SystemExit(f"pp={PP} stages must divide n_layers={config.n_layers}")
     mesh = pmesh.make_mesh(layout, device)
     print(f"mesh: {dataclasses.asdict(layout)}", flush=True)
-    return run(config, mesh, device, args.steps, args.batch, args.seq)
+    return run(config, mesh, device, args.steps, args.batch, args.seq, args.plain)
 
 
 if __name__ == "__main__":

@@ -22,9 +22,10 @@ The reference's env knobs (``TRAIN_STEPS``, ``TRAIN_BATCH``,
 ``resnet summary {...}`` JSON line with the running stats' digest (equal on
 every rank of a gang), how far they moved from (0, 1), the parameters'
 digest, the losses, the captured graphs' counts (``graph``: captures,
-replays, capture ms) and the peak device memory. On one card each step
-replays the CUDA graph captured at the first (``captured_step``);
-``--plain`` runs the eager step, its plain version.
+replays, capture ms) and the peak device memory. On the card each step
+replays the CUDA graph captured at the first (``captured_step``), on one
+card or on each rank of the gang; ``--plain`` runs the eager step, its
+plain version.
 """
 
 from __future__ import annotations
@@ -85,17 +86,18 @@ def captured_step(params: resnet.Params, stats: resnet.Params, optimizer: torch.
     its stats tree, which it returns: ``stats`` itself at a shape's first
     call, which keeps its identity and holds each step's statistics (a
     later call that passes another tree has its values copied in first).
-    The eager step, which returns new tensors, for CPU parameters and on an
-    active mesh."""
-    if sharding.is_active(mesh) or not train._graphed(transformer.leaves(params)[0]):
+    On an active mesh the graph holds batch norm's sums over the batch
+    axes, the gradients' reductions and the loss's mean. The eager step,
+    which returns new tensors, for CPU parameters."""
+    if not train._graphed(transformer.leaves(params)[0]):
         return train_step(params, stats, optimizer, images, labels, config, mesh)
 
     def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        loss, new = train_step(params, stats, optimizer, x, y, config)
+        loss, new = train_step(params, stats, optimizer, x, y, config, mesh)
         torch._foreach_copy_(transformer.leaves(stats), transformer.leaves(new))
         return loss
 
-    return train.step_graphs(params, optimizer).step(("resnet", config), step, params,
+    return train.step_graphs(params, optimizer).step(("resnet", config, mesh), step, params,
                                                      (images, labels), stats)
 
 

@@ -641,6 +641,40 @@ def test_cuda_captured_train_step_equals_the_eager_step(cuda_device, determinist
 
 
 @pytest.mark.cuda
+def test_cuda_captured_train_step_on_a_one_rank_nccl_mesh(nccl_mesh):
+    # chip_smoke.py phase 8's training step at test size: DTensor leaves,
+    # their capturable AdamW and the DTensor gradient stash, through the
+    # owner on the mesh, against the eager mesh step and the unsharded
+    # captured step from the same seed, bit for bit.
+    import dataclasses
+
+    from hivedscheduler_tpu_torch.models import train, transformer
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    config = dataclasses.replace(transformer.tiny(), remat=True, remat_policy="flash")
+    tokens = torch.randint(0, config.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(7)).to("cuda")
+
+    def run(mesh, captured):
+        params, opt = train.init_sharded(config, mesh,
+                                         torch.Generator(device="cuda").manual_seed(0), "cuda")
+        assert opt.param_groups[0]["capturable"]
+        local = tokens if mesh is None else sharding.shard_batch(tokens, mesh)
+        step = train.captured_step if captured else train.train_step
+        losses = [step(params, opt, local, config, "cuda", mesh) for _ in range(3)]
+        return losses, train.tree_digest(params)
+
+    captures = train.StepGraphs.captures
+    graph = run(nccl_mesh, True)
+    assert train.StepGraphs.captures == captures + 1
+    eager = run(nccl_mesh, False)
+    one = run(None, True)
+    for other in (eager, one):
+        assert all(torch.equal(a, b) for a, b in zip(graph[0], other[0]))
+        assert graph[1] == other[1]
+
+
+@pytest.mark.cuda
 def test_cuda_a_capture_that_fails_raises(cuda_device):
     # An AdamW whose step count lives on the host cannot be captured: the
     # owner raises (no quiet eager fallback on the card).
