@@ -125,8 +125,9 @@ neither the kernels line nor the last line, since no main path ran):
              once each (the model skips collectives over one rank, so the
              steps below communicate nothing), then the step's calls
              (funcol's all-gather, reduce-scatter, all-reduce by sum and by
-             max; c10d's in-place all-reduce and all-to-all;
-             ``_AllReduceSum`` and its backward; a batched send and
+             max; c10d's in-place all-reduce; Ulysses' all-to-all,
+             funcol's, in ``_AllToAll``, and ``_AllReduceSum``, each with
+             its backward; a batched send and
              receive to itself) captured in one CUDA graph by the decode
              step's capture (``generate._capture``) and replayed on fresh
              inputs, each output equal to its input: the one capture of
@@ -155,11 +156,13 @@ neither the kernels line nor the last line, since no main path ran):
              ``sharded_int8``). With two cards or more, a 2-rank
              (4 with four cards) NCCL gang of the tiny model
              (``tools/dryrun.py``, every row that fits: at 4 ranks the
-             sequence rows ``fsdp_sp_tp`` and ``ulysses-sp`` and the
-             pipeline rows ``pp`` and ``pp-x-sp`` too) must come within
-             5e-3 of the one-process loss, each rank launching each kernel
-             as often as its row asks (once a layer; on a pipeline stage
-             once a layer of the stage a microbatch). With four cards, the
+             sequence rows ``fsdp_sp_tp`` and ``ulysses-sp``, sp 2 x tp 2
+             under Ulysses, and the pipeline rows ``pp`` and ``pp-x-sp``
+             too), each row's step through the owner of the captured steps
+             (its warm-up, then one capture on every rank), must come
+             within 5e-3 of the one-process loss, each rank launching each
+             kernel as often as its row asks (once a layer; on a pipeline
+             stage once a layer of the stage a microbatch). With four cards, the
              training gangs: each rank is this script's
              ``--train-gang-job NAME``, started by the pod's launcher on a
              four-card bind info, which runs the twin eagerly (its plain
@@ -172,23 +175,24 @@ neither the kernels line nor the last line, since no main path ran):
              f64 at dp 4 (8 x 32^2, 3 SGD steps) against one card at the
              same global batch, eager and captured on each side: the
              losses, every parameter and running statistic within
-             F64_GANG_TOL. Then the longctx twin (tp 4) and the pipeline
-             twin (pp 2 x tp 2, Llama-3-8B's widths at 8 layers, batch 8 x
-             4096 in 4 microbatches, 3 steps), their losses within
-             GANG_TOL of the same model, seeds and batches on one card; so
-             does the Mixtral twin (ep 4 x fsdp 1: two experts a rank,
-             every rank holding all 4 rows; 2 layers, 4 x 4096, 3 steps),
+             F64_GANG_TOL. Then the longctx twin (tp 4), GANG_STEPS (5)
+             steps as every twin takes, its losses within GANG_TOL of the
+             same model, seeds and batches on one card; so does the
+             Mixtral twin (ep 4 x fsdp 1: two experts a
+             rank, every rank holding all 4 rows; 2 layers, 4 x 4096),
              each rank launching the kernels as phase 11 (c) does (a
              replay counting what its capture recorded; the dryrun's
              ``ep-moe`` row launches none: Mixtral tiny's heads of 16); the
              ResNet twin runs at dp 4 (BASELINE config 2: 32 images of
-             224^2 a card, 3 steps) against one card at batch 128 on the
+             224^2 a card) against one card at batch 128 on the
              same seeds, its first loss (before any update) within
              GANG_TOL, the later ones logged with their gaps (in bf16 at
              random init a step of SGD moves them by more than rounding;
              the f64 gate holds the updates), its batch norm's running
              stats equal on the four ranks (their digest), with
-             ``--profile`` each rank's idle share over one replay. Last, the
+             ``--profile`` each rank's idle share over one replay. Each
+             training gang logs its first replay's ms and the mean of the
+             replays after it beside one card's over the same steps. Then the
              serving gangs (SERVE_GANGS): Llama-3-8B (32 layers, 4 x 2048,
              32 greedy tokens, 2 requests) at tp 4 in bf16 and with
              ``--int8``, and Mixtral-8x7B (16 layers, the same traffic) at
@@ -205,8 +209,16 @@ neither the kernels line nor the last line, since no main path ran):
              flash kernel once a layer a request, the ranks' int8 shard
              digests are those of one card's quantized tree's tp blocks;
              TTFT, decode rate, ms a step against the rank's bound and peak
-             memory a rank beside one card's. With one card, the summary
-             records ``"nccl_ranks": 1``.
+             memory a rank beside one card's. Last, the pipeline twin
+             (Llama-3-8B's widths at 8 layers, batch 8 x 4096 in 4
+             microbatches) at pp 2 x tp 2, then at pp 2 x sp 2 (``--sp 2``:
+             Ulysses' all-to-alls inside each rank's graph, its kernels at
+             B2 S4096 H16/Hkv4), both held as the longctx gang is to one
+             one-card run. ``--gangs`` runs some of these (GANGS: dryrun,
+             train, serve, pipeline, pipeline_ulysses). A last ``gang`` line gives
+             each gang's kernel launches on each rank (the dryrun's rows
+             and the training gangs': the four-card runs' launches by
+             path). With one card, the summary records ``"nccl_ranks": 1``.
 9. longctx - the long-context twin (``workloads/train_longctx.py``, on one
              card its steps from a captured graph) at
              Llama-3-8B's full width, depth cut to 2 layers, 3 steps of
@@ -437,8 +449,17 @@ BERT_LARGE = {"batch": 8, "warmup": 2, "timed": 4}
 # The pipeline twin on four cards (pp 2 x tp 2): Llama-3-8B's widths at
 # phase 5's depth, batch 8 x 4096 in 4 microbatches, against the same
 # model, seeds and batches on one card.
-PIPELINE = {"model": "llama8b", "layers": 8, "batch": 8, "seq": 4096, "microbatches": 4,
-            "steps": 3}
+PIPELINE = {"model": "llama8b", "layers": 8, "batch": 8, "seq": 4096, "microbatches": 4}
+# The pipeline gangs: name -> sp. pp 2 x tp 2, and pp 2 x sp 2, whose
+# attention over sp is Ulysses' on the card ("auto": 32 heads and 8 KV heads
+# divide by sp 2), each rank's kernels at B2 S4096 H16/Hkv4.
+PIPELINE_GANGS = {"pipeline": 1, "pipeline_ulysses": 2}
+# What --gang-only runs, in this order (--gangs picks some): the dryrun's
+# rows, the training gangs, the serving gangs, the pipeline gangs.
+GANGS = ("dryrun", "train", "serve", *PIPELINE_GANGS)
+# Steps of each four-card training twin (and of its one-card run): the
+# capture, the first replay, then the replays whose mean is the gang's step.
+GANG_STEPS = 5
 # Phase 11: (a) a small f32 Mixtral that reaches the kernels (S256, head_dim
 # 32), two twin steps on the card and the CPU, then 8 greedy tokens; (b)
 # Mixtral-8x7B's widths served at 16 layers (46.96 GB of bf16 weights); (c)
@@ -454,7 +475,7 @@ MIXTRAL_TRAIN = {"layers": 2, "warmup": 2, "timed": 4}
 # four-card gang: the twin at dp 4 against one card at the global batch.
 RESNET_SMALL = {"config": dict(num_classes=10, width=16), "batch": 4, "size": 32, "steps": 2}
 RESNET = {"batch": 32, "size": 224, "warmup": 2, "timed": 4}
-RESNET_GANG = {"batch": 32, "steps": 3}
+RESNET_GANG = {"batch": 32, "steps": GANG_STEPS}
 # The four-card f64 gate: phase 12 (a)'s small ResNet in f64 at dp 4 (a
 # global batch of 8, two images a card) against one card at the global
 # batch, over 3 SGD steps, eager and captured on each side. In f64 the two
@@ -1646,10 +1667,11 @@ def nccl_capture_probe(mesh, seed: int) -> None:
     warm-up run on a side stream, then the capture) and replayed on fresh
     inputs: funcol's all-gather, reduce-scatter and all-reduce by sum and
     by max (the decode and training steps'), c10d's in-place all-reduce
-    (``reduce_gradients``') and all-to-all (``_exchange``, Ulysses'),
-    ``_AllReduceSum`` (batch norm's sums and the router's) forward and
-    backward, its backward issued from autograd's engine, and a send and
-    receive to itself in one batch (``_shift``, ring's). Each replay's
+    (``reduce_gradients``'), funcol's all-to-all (``_exchange``) inside
+    ``_AllToAll`` (Ulysses') and ``_AllReduceSum`` (batch norm's sums and
+    the router's), each forward and backward, the backward issued from
+    autograd's engine, and a send and receive to itself in one batch
+    (``_shift``, ring's). Each replay's
     outputs must be its inputs. The pipeline's own hops (a blocking send,
     then a receive) cannot pair with themselves: the four-card pipeline
     gang is their check."""
@@ -1661,19 +1683,23 @@ def nccl_capture_probe(mesh, seed: int) -> None:
 
     x = torch.zeros(4096, dtype=torch.bfloat16, device="cuda")
     w = torch.zeros(4096, dtype=torch.float32, device="cuda", requires_grad=True)
+    u = torch.zeros(4096, dtype=torch.float32, device="cuda", requires_grad=True)
 
     def collectives():
         y = x.clone()
         dist.all_reduce(y, group=mesh.get_group("dp"))
-        w.grad = None
+        w.grad = u.grad = None
         total = sharding._AllReduceSum.apply(w, mesh, "dp")
         total.backward(x.float())
+        swapped = sharding._AllToAll.apply(u, mesh, "sp")
+        swapped.backward(x.float())
         return torch.cat([sharding._all_gather(x, 0, mesh, "fsdp"),
                           sharding._reduce_scatter(x, 0, mesh, "fsdp"),
                           sharding._all_reduce(x, mesh, "tp"),
                           sharding._all_reduce(x, mesh, "tp", "max"),
                           y, sharding._exchange(x, mesh, "sp"),
                           total.detach().to(x.dtype), w.grad.to(x.dtype),
+                          swapped.detach().to(x.dtype), u.grad.to(x.dtype),
                           sharding._shift(x, mesh, "pp", 1)])
 
     replay, out = generate._capture(collectives, lambda: None)
@@ -1683,15 +1709,18 @@ def nccl_capture_probe(mesh, seed: int) -> None:
         x.copy_(torch.randn(x.shape, device="cuda", generator=gen))
         with torch.no_grad():
             w.copy_(torch.randn(w.shape, device="cuda", generator=gen).to(x.dtype))
+            u.copy_(torch.randn(u.shape, device="cuda", generator=gen).to(x.dtype))
         replay()
-        if not torch.equal(out, torch.cat([x.repeat(6), w.detach().to(x.dtype), x, x])):
+        if not torch.equal(out, torch.cat([x.repeat(6), w.detach().to(x.dtype), x,
+                                           u.detach().to(x.dtype), x, x])):
             raise AssertionError("a captured NCCL collective over one rank did not return "
                                  "its replay's input")
     torch.cuda.synchronize()
     log("sharded", step="nccl_capture", collectives=[
         "all_gather", "reduce_scatter", "all_reduce_sum", "all_reduce_max",
-        "c10d_all_reduce_in_place", "c10d_all_to_all_single", "all_reduce_sum_autograd",
-        "all_reduce_sum_backward", "batch_isend_irecv_self"],
+        "c10d_all_reduce_in_place", "funcol_all_to_all_single", "all_reduce_sum_autograd",
+        "all_reduce_sum_backward", "all_to_all_autograd", "all_to_all_backward",
+        "batch_isend_irecv_self"],
         elements=x.numel(), dtype="bfloat16", replays=replays, outputs_equal_inputs=True,
         nccl=".".join(map(str, torch.cuda.nccl.version())), torch=torch.__version__)
 
@@ -1891,7 +1920,10 @@ def check_gang(name: str, one: list, ranks_records: list, launches, gated_steps=
     by default; the rest are logged with their gaps), and launched each
     kernel ``launches`` times a step (a number, or one per kernel; a replay
     counts what its capture recorded); logs the step times (a step's: its
-    slowest rank's; the mean from step 1 on, the replays)."""
+    slowest rank's; the mean from step 1 on, the replays; the first
+    replay's, and the mean of the replays after it, the gang's step, beside
+    one card's over the same steps). Returns each kernel's launches on
+    each rank over the gang's run."""
     ranks = len(ranks_records)
     if any(len(recs) != len(one) for recs in ranks_records):
         raise AssertionError(f"{name}: {[len(r) for r in ranks_records]} steps from {ranks} "
@@ -1912,13 +1944,19 @@ def check_gang(name: str, one: list, ranks_records: list, launches, gated_steps=
             if st["launches"] != want:
                 raise AssertionError(f"{name} step {i}: a rank launched {st['launches']}, "
                                      f"not {launches}")
-    mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
-    one_ms = sum(r["step_ms"] for r in one[1:]) / len(one[1:])
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    later_ms = mean(step_ms[2:])
+    one_later_ms = mean([r["step_ms"] for r in one[2:]])
     log("gang", step=name, ranks=ranks, losses=losses, losses_one_card=[r["loss"] for r in one],
         loss_gaps=[abs(a - r["loss"]) for a, r in zip(losses, one)], tol=GANG_TOL,
-        gated_steps=gated_steps or len(one), step_ms=step_ms, step_ms_mean=mean_ms,
-        one_card_step_ms_mean=one_ms, speedup=one_ms / mean_ms,
+        gated_steps=gated_steps or len(one), step_ms=step_ms, first_replay_ms=step_ms[1], replays_after_first_ms_mean=later_ms,
+        one_card_replays_after_first_ms_mean=one_later_ms,
+        speedup_after_first_replay=one_later_ms / later_ms,
         launches_per_rank_step=launches, **fields)
+    return {k: [sum(st["launches"][k] for st in recs) for recs in ranks_records]
+            for k in ranks_records[0][0]["launches"]}
 
 
 def _twin_summary(prefix: str, stdout: str) -> dict:
@@ -1942,18 +1980,18 @@ def _quiet_main(prefix: str, main, argv: list) -> tuple:
 
 def _longctx_argv() -> list:
     return ["--model", LONGCTX["model"], "--layers", str(LONGCTX["layers"]),
-            "--seq", str(LONGCTX["seq"]), "--steps", str(LONGCTX["steps"])]
+            "--seq", str(LONGCTX["seq"]), "--steps", str(GANG_STEPS)]
 
 
-def _pipeline_argv() -> list:
+def _pipeline_argv(sp: int = 1) -> list:
     pl = PIPELINE
     return ["--model", pl["model"], "--layers", str(pl["layers"]), "--batch", str(pl["batch"]),
             "--seq", str(pl["seq"]), "--microbatches", str(pl["microbatches"]),
-            "--steps", str(pl["steps"])]
+            "--steps", str(GANG_STEPS), "--sp", str(sp)]
 
 
 def _mixtral_argv() -> list:
-    return ["--layers", str(MIXTRAL_TRAIN["layers"]), "--steps", "3"]
+    return ["--layers", str(MIXTRAL_TRAIN["layers"]), "--steps", str(GANG_STEPS)]
 
 
 def _resnet_argv(batch: int) -> list:
@@ -2091,7 +2129,8 @@ def train_gang_job(name: str, profile: bool = False, gang_dir: str = None) -> di
                     "stats_digest": summary["bn_stats_digest"]}
         if name == "longctx":
             return {"records": train_longctx.main(_longctx_argv() + ["--plain"] * plain)}
-        return {"records": train_pp.main(_pipeline_argv() + ["--plain"] * plain)}
+        sp = PIPELINE_GANGS[name]
+        return {"records": train_pp.main(_pipeline_argv(sp) + ["--plain"] * plain)}
 
     runs = {}
     for plain in (True, False):
@@ -2223,16 +2262,45 @@ def resnet_f64_gate(ranks: int) -> None:
     log("gang", step="resnet_f64_gate", **fields)
 
 
-def train_gang(ranks: int, profile: bool = False) -> None:
-    """The four-card training gangs: the f64 gate first, then the longctx,
-    pipeline, Mixtral and ResNet-50 twins, each on one card in this
-    process and as a gang through the launcher (``launch_train_gang``:
-    every rank's captured run bitwise its eager run), the gang's captured
-    steps held to one card by ``check_gang``."""
+def pipeline_gangs(ranks: int, names) -> dict:
+    """The pipeline twin's gangs ``names`` (of PIPELINE_GANGS) in turn,
+    each held by ``check_gang`` to one one-card reference, run first here
+    through the twin's ``run`` on an inactive mesh (the twin itself refuses
+    an odd card count). Returns each gang's kernel launches on each rank."""
     import torch
 
-    from hivedscheduler_tpu_torch.workloads import (train_longctx, train_mixtral, train_pp,
-                                                    train_resnet)
+    from hivedscheduler_tpu_torch.workloads import train_pp
+
+    pl = PIPELINE
+    config = dataclasses.replace(train_pp.MODELS[pl["model"]](), max_seq_len=pl["seq"],
+                                 n_layers=pl["layers"], remat=True, remat_policy="flash",
+                                 pp_microbatches=pl["microbatches"])
+    one = train_pp.run(config, None, torch.device("cuda"), GANG_STEPS, pl["batch"], pl["seq"])
+    _free_card()
+    launches = {}
+    for name in names:
+        jobs = launch_train_gang(name, ranks)
+        mesh = train_pp.mesh_config(ranks, PIPELINE_GANGS[name], config.n_kv_heads)
+        # Each stage holds layers / pp layers and runs each once a microbatch
+        # (at sp 2 Ulysses' one call a layer at the full sequence, H / sp
+        # heads; ring's local step, plain torch, would launch none).
+        launches[name] = check_gang(
+            name, one, [job["captured"]["records"] for job in jobs],
+            pl["layers"] // mesh.pp * pl["microbatches"], mesh=dataclasses.asdict(mesh),
+            steps=GANG_STEPS, **pl, **_gang_fields(jobs))
+    return launches
+
+
+def train_gang(ranks: int, profile: bool = False) -> dict:
+    """The four-card training gangs: the f64 gate first, then the longctx,
+    Mixtral and ResNet-50 twins (:func:`phase_gang` runs the pipeline's
+    last), each on one card in this process and as a gang through the
+    launcher
+    (``launch_train_gang``: every rank's captured run bitwise its eager
+    run), the gang's captured steps held to one card by ``check_gang``.
+    Returns each gang's kernel launches on each rank over its captured
+    run."""
+    from hivedscheduler_tpu_torch.workloads import train_longctx, train_mixtral, train_resnet
 
     resnet_f64_gate(ranks)
 
@@ -2241,25 +2309,11 @@ def train_gang(ranks: int, profile: bool = False) -> None:
     jobs = launch_train_gang("longctx", ranks)
     mesh = train_longctx.mesh_config(ranks, train_longctx.MODELS[LONGCTX["model"]]().n_kv_heads)
     # tp 4 keeps whole GQA groups on each rank: the kernels run once a layer.
-    check_gang("longctx", one, [job["captured"]["records"] for job in jobs], LONGCTX["layers"],
-               mesh=dataclasses.asdict(mesh),
-               tokens_per_s_one_card=LONGCTX["seq"] / (one[-1]["step_ms"] * 1e-3),
-               **_gang_fields(jobs))
-
-    # The pipeline twin: the one-card reference through its ``run`` on an
-    # inactive mesh (the twin itself refuses an odd card count).
-    pl = PIPELINE
-    config = dataclasses.replace(train_pp.MODELS[pl["model"]](), max_seq_len=pl["seq"],
-                                 n_layers=pl["layers"], remat=True, remat_policy="flash",
-                                 pp_microbatches=pl["microbatches"])
-    one = train_pp.run(config, None, torch.device("cuda"), pl["steps"], pl["batch"], pl["seq"])
-    _free_card()
-    jobs = launch_train_gang("pipeline", ranks)
-    mesh = train_pp.mesh_config(ranks, 1, config.n_kv_heads)
-    # Each stage holds layers / pp layers and runs each once a microbatch.
-    check_gang("pipeline", one, [job["captured"]["records"] for job in jobs],
-               pl["layers"] // mesh.pp * pl["microbatches"], mesh=dataclasses.asdict(mesh),
-               **pl, **_gang_fields(jobs))
+    launches = {}
+    launches["longctx"] = check_gang(
+        "longctx", one, [job["captured"]["records"] for job in jobs], LONGCTX["layers"],
+        mesh=dataclasses.asdict(mesh),
+        tokens_per_s_one_card=LONGCTX["seq"] / (one[-1]["step_ms"] * 1e-3), **_gang_fields(jobs))
 
     # The Mixtral twin at ep 4 x fsdp 1: every rank holds all 4 rows, as
     # one card does, and runs two of the eight experts.
@@ -2267,10 +2321,11 @@ def train_gang(ranks: int, profile: bool = False) -> None:
     one = train_mixtral.main(_mixtral_argv())  # this process, card 0
     _free_card()
     jobs = launch_train_gang("mixtral", ranks)
-    check_gang("mixtral", one, [job["captured"]["records"] for job in jobs],
-               {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers, "flash_bwd_dq": layers},
-               mesh=dataclasses.asdict(train_mixtral.mesh_config(ranks)), layers=layers,
-               batch=[train_mixtral.ROWS_PER_SHARD, train_mixtral.SEQ], **_gang_fields(jobs))
+    launches["mixtral"] = check_gang(
+        "mixtral", one, [job["captured"]["records"] for job in jobs],
+        {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers, "flash_bwd_dq": layers},
+        mesh=dataclasses.asdict(train_mixtral.mesh_config(ranks)), layers=layers,
+        batch=[train_mixtral.ROWS_PER_SHARD, train_mixtral.SEQ], **_gang_fields(jobs))
 
     # The ResNet twin at dp 4 (BASELINE config 2) against one card at the
     # global batch: the same images, so batch norm's statistics must be the
@@ -2285,24 +2340,28 @@ def train_gang(ranks: int, profile: bool = False) -> None:
     jobs = launch_train_gang("resnet", ranks, profile)
     if len({job["captured"]["stats_digest"] for job in jobs}) != 1:
         raise AssertionError(f"resnet dp {ranks}: the ranks' running stats differ")
-    check_gang("resnet", one, [job["captured"]["records"] for job in jobs], 0, gated_steps=1,
-               mesh={"dp": ranks}, batch_per_card=rg["batch"],
-               image_size=train_resnet.IMAGE_SIZE, bn_stats_equal_on_ranks=True,
-               images_per_s_one_card=rg["batch"] * ranks / (one[-1]["step_ms"] * 1e-3),
-               idle_share_per_rank=[job.get("idle_share") for job in jobs],
-               **_gang_fields(jobs))
+    launches["resnet"] = check_gang(
+        "resnet", one, [job["captured"]["records"] for job in jobs], 0, gated_steps=1,
+        mesh={"dp": ranks}, batch_per_card=rg["batch"], image_size=train_resnet.IMAGE_SIZE,
+        bn_stats_equal_on_ranks=True,
+        images_per_s_one_card=rg["batch"] * ranks / (one[-1]["step_ms"] * 1e-3),
+        idle_share_per_rank=[job.get("idle_share") for job in jobs], **_gang_fields(jobs))
+    return launches
 
 
-def phase_gang(profile: bool = False) -> int:
+def phase_gang(profile: bool = False, gangs=GANGS) -> int:
     """Gangs across cards, where the machine has two or more (see the
-    module docstring, phase 8): every dryrun row that fits as an NCCL gang
-    of 2 ranks, or 4 with four cards (the sequence rows then launch the
-    kernels on every rank, and the pipeline rows on every stage); with four
-    cards, also the training gangs (:func:`train_gang`: the f64 ResNet
-    gate, then the longctx, pipeline, Mixtral and ResNet-50 twins as the
-    scheduler would start them on a pod granted four cards, each step from
-    the rank's captured graph) and the serving gangs (:func:`serve_gang`).
-    Returns the ranks of the gang (1, and nothing run, on one card)."""
+    module docstring, phase 8), those of ``gangs`` (of GANGS; all by
+    default): every dryrun row that fits as an NCCL gang of 2 ranks, or 4
+    with four cards (the sequence rows then launch the kernels on every
+    rank, and the pipeline rows on every stage); with four cards, also the
+    training gangs (:func:`train_gang`: the f64 ResNet gate, then the
+    longctx, Mixtral and ResNet-50 twins as the scheduler would start them
+    on a pod granted four cards, each step from the rank's captured graph),
+    the serving gangs (:func:`serve_gang`), then the pipeline twin at
+    pp 2 x tp 2 and last at pp 2 x sp 2 (:func:`pipeline_gangs`), and a
+    last line of every gang's kernel launches a rank. Returns the ranks of
+    the gang (1, and nothing run, on one card)."""
     import torch
 
     from hivedscheduler_tpu_torch.tools import dryrun
@@ -2311,19 +2370,37 @@ def phase_gang(profile: bool = False) -> int:
     if count < 2:
         return 1
     ranks = 4 if count >= 4 else 2
-    result = dryrun.dryrun(ranks, device="cuda")
-    log("gang", step="dryrun", ranks=ranks, **result)
-    for row, per_rank in result["launches"].items():
-        # Every row attends through the kernels on every rank (the sequence
-        # rows through Ulysses' full-sequence call): once a layer, and on a
-        # pipeline stage once a layer of the stage a microbatch.
-        if any(set(n.values()) != {result["expected"][row]} for n in per_rank):
-            raise AssertionError(f"dryrun row {row}: kernel launches {per_rank}, "
-                                 f"not {result['expected'][row]} each")
+    launches = {}
+    if "dryrun" in gangs:
+        result = dryrun.dryrun(ranks, device="cuda")
+        log("gang", step="dryrun", ranks=ranks, **result)
+        for row, per_rank in result["launches"].items():
+            # Every row attends through the kernels on every rank (the
+            # sequence rows through Ulysses' full-sequence call): once a
+            # layer, and on a pipeline stage once a layer of the stage a
+            # microbatch.
+            if any(set(n.values()) != {result["expected"][row]} for n in per_rank):
+                raise AssertionError(f"dryrun row {row}: kernel launches {per_rank}, "
+                                     f"not {result['expected'][row]} each")
+            # The row's one step came from the owner: its warm-up, then the capture.
+            if result["captures"][row] != [1] * ranks:
+                raise AssertionError(f"dryrun row {row}: captures {result['captures'][row]}, "
+                                     "not one a rank")
+        launches.update({f"dryrun_{row}": {k: [n[k] for n in per_rank] for k in per_rank[0]}
+                         for row, per_rank in result["launches"].items()})
     if ranks < 4:
         return ranks
-    train_gang(ranks, profile)
-    serve_gang(ranks, profile)
+    if "train" in gangs:
+        launches.update(train_gang(ranks, profile))
+    if "serve" in gangs:
+        serve_gang(ranks, profile)
+    # The pipeline at pp 2 x sp 2 (Ulysses) last, so that a gang that stops
+    # costs none of the others' results.
+    pipelines = [name for name in PIPELINE_GANGS if name in gangs]
+    if pipelines:
+        launches.update(pipeline_gangs(ranks, pipelines))
+    # Each gang's kernels on each rank: the four-card runs' launches_by_path.
+    log("gang", step="kernels", launches_by_path=launches)
     return ranks
 
 
@@ -3117,6 +3194,8 @@ def main() -> int:
     parser.add_argument("--gang-only", action="store_true",
                         help="build, then only the gangs across cards (phase 8's last part); "
                              "needs two cards or more")
+    parser.add_argument("--gangs", default=",".join(GANGS),
+                        help=f"with --gang-only, a comma list of {GANGS} (default: all)")
     parser.add_argument("--workloads-job", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--serve-gang-job", metavar="NAME", help=argparse.SUPPRESS)
     parser.add_argument("--train-gang-job", metavar="NAME", help=argparse.SUPPRESS)
@@ -3158,7 +3237,10 @@ def main() -> int:
 
     log("build", seconds=_build.build_all(), sources=[s.name for s in _build.sources()])
     if args.gang_only:
-        if timed("gang", phase_gang, args.profile) < 2:
+        gangs = [g for g in args.gangs.split(",") if g]
+        if set(gangs) - set(GANGS):
+            raise SystemExit(f"--gangs: unknown {sorted(set(gangs) - set(GANGS))}; of {GANGS}")
+        if timed("gang", phase_gang, args.profile, gangs) < 2:
             raise AssertionError("--gang-only needs two cards or more")
         print(smi)
         return 0

@@ -266,9 +266,8 @@ def make_train_step(
     are this rank's rows (``sharding.shard_batch``), the loss the global
     mean. It is :func:`captured_step`: on CUDA each rank replays its graph
     of the whole sharded step (JAX's jitted, donating step with its
-    shardings), on an active mesh or an inactive one (one process); it
-    raises, as :func:`captured_step` does, for a step that
-    :func:`takes_ulysses`."""
+    shardings), on an active mesh or an inactive one (one process), for
+    every sp backend."""
     device = mesh.device_type
 
     def step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -539,20 +538,6 @@ def step_graphs(params: Any, optimizer: torch.optim.Optimizer) -> StepGraphs:
     return owner
 
 
-def takes_ulysses(config: transformer.TransformerConfig, mesh: Any, seq: int,
-                  on_cuda: bool = True) -> bool:
-    """Whether the step of ``config`` on ``mesh`` attends over sp by
-    Ulysses at the global length ``seq`` (``sharding.sp_backend``; "auto"
-    takes it on the card where the heads divide). Such a step is not
-    captured yet: on four H100s the warm-up of a captured Ulysses step hung
-    in its backward (ROADMAP queue 1 item 20). :func:`captured_step`
-    refuses it; its callers take the eager :func:`train_step` by name."""
-    if not sharding.is_active(mesh) or sharding.axes_size("sp", mesh) == 1:
-        return False
-    return sharding.sp_backend(mesh, config.n_heads, config.n_kv_heads, seq, config.sp_mode,
-                               on_cuda) == "ulysses"
-
-
 def captured_step(
     params: Params,
     optimizer: torch.optim.Optimizer,
@@ -565,15 +550,12 @@ def captured_step(
     (:func:`step_graphs`) for ``tokens``' shape and ``mesh``, the batch
     copied into its static int64 buffer before each replay; on an active
     mesh the graph holds the rank's whole sharded step, its collectives
-    included. The eager ``train_step`` runs for CPU parameters. Raises for
-    a step that :func:`takes_ulysses`. Returns the loss (a copy, not
-    synchronised)."""
+    included, whatever the attention over sp (Ulysses' all-to-alls or
+    ring's shifts). The eager ``train_step`` runs for CPU parameters.
+    Returns the loss (a copy, not synchronised)."""
     device = resolve_device(device)
     if not _graphed(transformer.leaves(params)[0]):
         return train_step(params, optimizer, tokens, config, device, mesh)
-    if takes_ulysses(config, mesh, tokens.shape[1] * sharding.axes_size("sp", mesh)):
-        raise NotImplementedError("a step whose attention over sp is Ulysses' is not captured "
-                                  "(ROADMAP queue 1 item 20): call train_step")
     return step_graphs(params, optimizer).step(
         ("llama", config, mesh), lambda t: train_step(params, optimizer, t, config, device, mesh),
         params, (tokens.to(torch.long),))[0]

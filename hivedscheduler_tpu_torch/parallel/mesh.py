@@ -93,6 +93,23 @@ def process_rank(env: Optional[Mapping[str, str]] = None) -> int:
     return int(e["RANK"] if has_per_card_block(e) else e.get("JAX_PROCESS_ID", "0"))
 
 
+# NCCL's settings for a gang whose steps are captured. By default NCCL
+# registers the user buffers of a collective made during a capture; on
+# four H100s the pipeline twin at pp 2 x sp 2 (Llama-3-8B's widths, its
+# all-to-alls and sends in each rank's graph) then stopped in a replay's
+# launch, and with registration off it ran (PERF.md, section 6). Eager
+# collectives never register, so off, a replay moves the data as the
+# eager step does.
+NCCL_ENV = {"NCCL_GRAPH_REGISTER": "0"}
+
+
+def nccl_env() -> None:
+    """Set :data:`NCCL_ENV` where the environment does not; call before
+    the process's first NCCL communicator, whose creation reads it."""
+    for key, value in NCCL_ENV.items():
+        os.environ.setdefault(key, value)
+
+
 def initialize_from_env(
     env: Optional[Mapping[str, str]] = None, device: Device = None
 ) -> None:
@@ -114,6 +131,7 @@ def initialize_from_env(
     dev = resolve_device(device)
     rank = process_rank(e)
     if dev.type == "cuda":
+        nccl_env()
         visible = torch.cuda.device_count()
         card = int(e.get("LOCAL_RANK", "0")) % visible if per_card else cuda_index(e, rank, visible)
         torch.cuda.set_device(card)

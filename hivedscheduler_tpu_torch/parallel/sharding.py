@@ -38,10 +38,17 @@ local tensors (``DTensor.to_local``):
 
 The collectives go through ``torch.distributed._functional_collectives``,
 whose NCCL calls a CUDA graph captures and replays (``chip_smoke.py``
-phase 8 replays them captured on fresh inputs): the decode step on a mesh
-runs from a captured graph with its collectives inside
-(``models/generate.py``). A rank must then make the same collectives in
-the same order as its peers at capture and at every replay.
+phase 8 replays them captured on fresh inputs): the decode and training
+steps on a mesh run from captured graphs with their collectives inside
+(``models/generate.py``, ``models/train.py``). Every differentiable
+collective of a step (the gathers and reduce-scatters, the all-reduces,
+Ulysses' all-to-all) takes one route: funcol's async call on the group's
+NCCL stream, ordered after the current stream, then ``wait_tensor``;
+ring's shifts and a pipeline's hops are P2P requests waited on. Only
+``reduce_gradients``' in-place all-reduces and ``broadcast_from`` call
+c10d synchronously (``async_op`` False), outside autograd. A rank must
+make the same collectives in the same order as its peers at capture and
+at every replay.
 
 A mesh is *active* when a process group exists (:func:`is_active`): then
 the model runs this sharded code. A collective over an axis of one rank is
@@ -283,10 +290,7 @@ def broadcast_from(x: torch.Tensor, mesh: Any, axis: str, src: int) -> torch.Ten
 
 
 def _exchange(x: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=_group(mesh, axis))
-    return out
+    return _wait(funcol.all_to_all_single(x.contiguous(), None, None, _group(mesh, axis)))
 
 
 class _Shift(torch.autograd.Function):

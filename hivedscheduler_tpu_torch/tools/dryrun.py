@@ -1,16 +1,20 @@
 """Multi-process dryrun of the sharded training step: the port's twin of
 ``__graft_entry__.py``'s ``dryrun_multichip``.
 
-    python -m hivedscheduler_tpu_torch.tools.dryrun 4 [--rows fsdp_tp,dp] [--device cpu]
+    python -m hivedscheduler_tpu_torch.tools.dryrun 4 [--rows fsdp_tp,dp] [--device cpu] \\
+        [--record DIR]
 
 Spawns an n-process gang (NCCL on CUDA, one card a rank, unless
 ``--device cpu`` asks for gloo on the CPU; with no CUDA and no device it
 raises before any process starts, as every entry point of the port does),
-and each row of layouts takes one eager sharded train step of the
-``tiny`` model from seed 0 on all-zero tokens, at least 4 rows of 256
-rounded up to a multiple of dp x fsdp (identical rows keep the mean loss
-comparable across batch sizes). Each row's loss must lie within ``TOL``
-of the one-process step on 4 rows; a row that diverges raises. Rows:
+and each row of layouts takes one sharded train step of the ``tiny``
+model from seed 0 on all-zero tokens, at least 4 rows of 256 rounded up
+to a multiple of dp x fsdp (identical rows keep the mean loss comparable
+across batch sizes), through the owner of the captured steps
+(``models/train.make_train_step``), as the JAX dryrun jits its step: on
+the card the row's one step is the warm-up, then the capture. Each row's
+loss must lie within ``TOL`` of the one-process eager step on 4 rows; a
+row that diverges raises. Rows:
 
 - ``fsdp_sp_tp``: the JAX dryrun's main row, tp 2 and sp 2 where they
   fit, the rest fsdp; under sp_mode "auto" its attention over sp is ring
@@ -27,20 +31,31 @@ of the one-process step on 4 rows; a row that diverges raises. Rows:
   with the sequence sharded inside each stage;
 - ``ep-moe``: fsdp n / 2 x ep 2 (n even): one step of the Mixtral ``tiny``
   model (f32, AdamW with ``optax.adamw(1e-3)``'s settings) on all-zero
-  tokens of 64, held to the one-process Mixtral step on the same rows, not
-  to the dense one. Its head_dim of 16 and length of 64 are below the
+  tokens of 64 through its owner (``workloads/train_mixtral.captured_step``),
+  held to the one-process Mixtral step on the same rows, not to the dense
+  one. Its head_dim of 16 and length of 64 are below the
   kernels', so it launches none on the card.
 
 Each rank reports its kernel launches per row; :func:`expected_launches`
 is what each kernel must show on the card.
+
+``--record DIR`` makes a hang leave a record in DIR. NCCL's flight
+recorder keeps each rank's collectives (``TORCH_NCCL_TRACE_BUFFER_SIZE``);
+the process group times out after ``RECORD_AFTER`` s and NCCL's watchdog
+then dumps the recorder into ``nccl_trace_rank_<r>`` (communicator,
+sequence number, state of each collective). ``faulthandler`` writes every
+Python thread's stack (autograd's device thread runs the backward) into
+``rank<r>.stacks`` after ``RECORD_AFTER`` s, which shows a rank stopped
+outside any collective too (as in ``destroy_process_group``).
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
+import faulthandler
 import json
 import os
-import socket
 import subprocess
 import sys
 import types
@@ -54,6 +69,9 @@ ROWS = ("fsdp_sp_tp", "ulysses-sp", "fsdp_tp", "fsdp", "dp", "pp", "pp-x-sp", "e
 LATER_ROWS: Dict[str, int] = {}
 # The rows that force a sequence-parallel backend.
 SP_MODE = {"ulysses-sp": "ulysses"}
+# Seconds before a recording rank (--record) dumps its stacks and its
+# process group times out; the parent waits this long and a minute more.
+RECORD_AFTER = 240
 
 
 def layouts(n: int, rows: Sequence[str] = ROWS) -> Dict[str, Dict[str, int]]:
@@ -134,7 +152,8 @@ def _params(device: str, mesh=None, sp_mode: str = "auto"):
 
 def _moe_step(device: str, rows: int, mesh=None) -> float:
     """One ``ep-moe`` step (Mixtral tiny, seed 0, zero tokens of
-    ``MOE_SEQ``), on ``mesh`` or one process; returns its loss."""
+    ``MOE_SEQ``): on ``mesh`` through its owner, on one process the eager
+    step; returns its loss."""
     import torch
 
     from ..models import mixtral, train
@@ -146,16 +165,33 @@ def _moe_step(device: str, rows: int, mesh=None) -> float:
     params = train.init_sharded(config, mesh, gen, device, model=mixtral)[0]
     optimizer = train_bert.make_optimizer(params, 1e-3)
     tokens = _tokens(rows, MOE_SEQ)
+    step = train_mixtral.train_step
     if sharding.is_active(mesh):
         tokens = sharding.shard_batch(tokens, mesh)
-    return float(train_mixtral.train_step(params, optimizer, tokens.to(device), config, mesh))
+        step = train_mixtral.captured_step
+    return float(step(params, optimizer, tokens.to(device), config, mesh))
+
+
+def _dense_step(device: str, row: str, sizes: Dict[str, int], mesh) -> float:
+    """One step of a dense row through the owner (``make_train_step``) on
+    ``mesh``; returns its loss. The row's weights, optimizer and (on the
+    card) captured graph live in this call only, as ``_moe_step``'s do:
+    with the last row's graph, its NCCL calls inside, still alive, every
+    rank of a four-H100 gang stopped in ``destroy_process_group``."""
+    from ..models import train
+    from ..parallel import sharding
+
+    config, params, optimizer = _params(device, mesh, SP_MODE.get(row, "auto"))
+    tokens = sharding.shard_batch(_tokens(_rows(sizes)), mesh)
+    return float(train.make_train_step(config, mesh, optimizer)(params, tokens.to(device)))
 
 
 def reference_loss(device: Optional[str] = None, row: str = "", rows: int = 4) -> float:
     """The one-process step's loss on zero rows: the dense model's on 4,
     or for ``ep-moe`` Mixtral's on ``rows`` (routing capacity counts the
     batch's tokens, so the row is held at its own batch). On CUDA unless
-    ``device`` names the CPU (the eager step: the gang's is eager too)."""
+    ``device`` names the CPU (the eager step, the plain version of the
+    gang's)."""
     from .. import resolve_device
     from ..models import train
 
@@ -167,57 +203,64 @@ def reference_loss(device: Optional[str] = None, row: str = "", rows: int = 4) -
     return float(train.train_step(params, optimizer, _tokens(4), config, device))
 
 
-def _worker(rank: int, world: int, port: int, device: str, rows: Sequence[str]) -> None:
+def _worker(rank: int, world: int, port: int, device: str, rows: Sequence[str],
+            record: Optional[str] = None) -> None:
     import torch
     import torch.distributed as dist
 
     from ..models import train
     from ..ops.attention import kernel_launches
     from ..parallel import mesh as pmesh
-    from ..parallel import sharding
 
     if device == "cuda":
         torch.cuda.set_device(rank)
+        pmesh.nccl_env()
     else:  # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dist.init_process_group("nccl" if device == "cuda" else "gloo",
-                            init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
-    losses, launches = {}, {}
+    # The parent holds the rendezvous store; every rank is its client.
+    store = dist.TCPStore("127.0.0.1", port, is_master=False,
+                          timeout=datetime.timedelta(seconds=300))
+    timeout = {}
+    if record:
+        stacks = open(os.path.join(record, f"rank{rank}.stacks"), "w")
+        faulthandler.dump_traceback_later(RECORD_AFTER, file=stacks)
+        timeout["timeout"] = datetime.timedelta(seconds=RECORD_AFTER)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo", store=store,
+                            world_size=world, rank=rank, **timeout)
+    losses, launches, captures = {}, {}, {}
     try:
         for row, sizes in layouts(world, rows).items():
             mesh = pmesh.make_mesh(pmesh.MeshConfig(**sizes), device)
-            before = kernel_launches()
-            if row == "ep-moe":
-                losses[row] = _moe_step(device, _rows(sizes), mesh)
-            else:
-                config, params, optimizer = _params(device, mesh, SP_MODE.get(row, "auto"))
-                tokens = sharding.shard_batch(_tokens(_rows(sizes)), mesh)
-                # One step a row: the eager sharded step (a captured step's
-                # first call is this step, run as the capture's warm-up).
-                losses[row] = float(train.train_step(params, optimizer, tokens, config, device,
-                                                     mesh))
+            before, captured = kernel_launches(), train.StepGraphs.captures
+            losses[row] = (_moe_step(device, _rows(sizes), mesh) if row == "ep-moe"
+                           else _dense_step(device, row, sizes, mesh))
             launches[row] = {k: v - before[k] for k, v in kernel_launches().items()}
+            captures[row] = train.StepGraphs.captures - captured
     finally:
         dist.destroy_process_group()
-    print(json.dumps({"rank": rank, "losses": losses, "launches": launches}), flush=True)
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    if record:
+        faulthandler.cancel_dump_traceback_later()
+    print(json.dumps({"rank": rank, "losses": losses, "launches": launches,
+                      "captures": captures}), flush=True)
 
 
 def dryrun(n: int, rows: Sequence[str] = ROWS, device: Optional[str] = None,
-           timeout: float = 600) -> Dict[str, object]:
+           timeout: float = 600, record: Optional[str] = None) -> Dict[str, object]:
     """Run the rows on an n-process gang (on CUDA unless ``device`` names
     the CPU; with no CUDA and no device it raises before starting any
     process) and hold each rank's loss to the one-process step's; returns
     {"reference": the dense one-process loss,
     "references": {row: the loss it is held to}, "rows": {row: loss},
     "launches": {row: each rank's kernel launches} (CUDA launches only),
-    "expected": {row: each kernel's launches per rank on the card}}.
-    Every process it starts is ended before it returns."""
+    "captures": {row: each rank's captured graphs} (one on the card, none
+    on the CPU), "expected": {row: each kernel's launches per rank on the
+    card}}.
+    Every process it starts is ended before it returns. The rendezvous
+    store lives in this process, on a port the OS gives it: no rank races
+    another program for a port picked beforehand. ``record``: the
+    directory of a hang's record (see the module docstring)."""
+    import torch.distributed as dist
+
     from .. import resolve_device
 
     device = resolve_device(device).type
@@ -225,10 +268,19 @@ def dryrun(n: int, rows: Sequence[str] = ROWS, device: Optional[str] = None,
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    port = _free_port()
+    argv = []
+    if record:
+        record = os.path.abspath(record)
+        os.makedirs(record, exist_ok=True)
+        trace = os.path.join(record, "nccl_trace_rank_")  # the watchdog appends the rank
+        env.update(TORCH_NCCL_TRACE_BUFFER_SIZE="4096", TORCH_NCCL_DUMP_ON_TIMEOUT="1",
+                   TORCH_NCCL_DEBUG_INFO_TEMP_FILE=trace)
+        argv, timeout = ["--record", record], RECORD_AFTER + 60
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+    port = store.port
     procs = [subprocess.Popen(
         [sys.executable, "-m", "hivedscheduler_tpu_torch.tools.dryrun", str(n),
-         "--worker", str(r), str(port), "--device", device, "--rows", ",".join(wanted)],
+         "--worker", str(r), str(port), "--device", device, "--rows", ",".join(wanted), *argv],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root, env=env)
         for r in range(n)]
     outs: List[dict] = []
@@ -257,6 +309,7 @@ def dryrun(n: int, rows: Sequence[str] = ROWS, device: Optional[str] = None,
           flush=True)
     return {"reference": ref, "references": refs, "rows": losses,
             "launches": {row: [o["launches"][row] for o in outs] for row in wanted},
+            "captures": {row: [o["captures"][row] for o in outs] for row in wanted},
             "expected": {row: expected_launches(sizes, row) for row, sizes in wanted.items()}}
 
 
@@ -267,15 +320,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                         help=f"comma list of {ROWS}")
     parser.add_argument("--device", default=None, choices=("cpu", "cuda"),
                         help="default cuda; 'cpu' runs the gang on gloo")
+    parser.add_argument("--record", metavar="DIR",
+                        help="leave a hang's record in DIR: NCCL's flight recorder dump and "
+                             "each rank's Python stacks")
     parser.add_argument("--worker", nargs=2, type=int, metavar=("RANK", "PORT"),
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     rows = [r for r in args.rows.split(",") if r]
     if args.worker:
         rank, port = args.worker
-        _worker(rank, args.n, port, args.device, rows)
+        _worker(rank, args.n, port, args.device, rows, args.record)
         return {}
-    return dryrun(args.n, rows, args.device)
+    return dryrun(args.n, rows, args.device, record=args.record)
 
 
 if __name__ == "__main__":

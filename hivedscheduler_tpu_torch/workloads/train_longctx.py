@@ -24,8 +24,8 @@ too). Blocks are checkpointed under remat "flash", the port's
 ``train.main`` default: the flash forward's outputs are kept, so every
 step launches each kernel once a layer. One process keeps the
 unsharded step. On the card each step replays the CUDA graph that each
-rank captured at the first (``models/train.make_train_step``), but for a
-Ulysses layout, whose step stays eager (``models/train.takes_ulysses``).
+rank captured at the first (``models/train.make_train_step``), Ulysses'
+all-to-alls or ring's shifts inside.
 """
 
 from __future__ import annotations
@@ -89,14 +89,12 @@ def run(config: transformer.TransformerConfig, mesh, device: torch.device, steps
         seq: int, plain: bool = False) -> List[Dict[str, object]]:
     """``steps`` steps from seed 0's weights on seed 1's rows through
     ``models/train.make_train_step`` (on the card, each rank's replay of
-    the graph captured at the first step, tp's all-reduces inside), or the
-    eager ``train_step`` with ``plain`` and where the step
-    ``train.takes_ulysses`` (not captured yet). Returns each step's loss,
+    the graph captured at the first step, the step's collectives inside),
+    or the eager ``train_step`` with ``plain``. Returns each step's loss,
     ms, tokens/s and kernel launches, and prints them."""
     gen = torch.Generator(device=device).manual_seed(0)
     params, optimizer = train.init_sharded(config, mesh, gen, device)
     step = train.make_train_step(config, mesh, optimizer)
-    plain = plain or train.takes_ulysses(config, mesh, seq, device.type == "cuda")
     rng = np.random.default_rng(1)
     records = []
     for i in range(steps):

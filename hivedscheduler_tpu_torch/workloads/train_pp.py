@@ -23,8 +23,7 @@ keys do. Blocks are checkpointed under remat "flash" (the JAX twin: "full";
 the values are the same): every step launches each kernel once a layer a
 microbatch on each stage. On the card each step replays the CUDA graph
 that each rank captured at the first (``models/train.captured_step``),
-but for a Ulysses layout, whose step stays eager
-(``models/train.takes_ulysses``).
+whatever the attention over sp.
 """
 
 from __future__ import annotations
@@ -68,14 +67,13 @@ def run(config: transformer.TransformerConfig, mesh, device: torch.device, steps
     same model, seeds and batches, to hold a gang against), each through
     ``models/train.captured_step`` (on the card, a replay of the graph
     captured at the first step: on a mesh each stage's graph holds its
-    part of the schedule, its sends and receives included), or the eager
-    ``train_step`` with ``plain`` and where the step
-    ``train.takes_ulysses`` (``--sp``; not captured yet). Returns each
-    step's loss, ms, tokens/s and kernel launches, and prints them."""
+    part of the schedule, its sends and receives included, and with
+    ``--sp`` its all-to-alls or shifts), or the eager ``train_step`` with
+    ``plain``. Returns each step's loss, ms, tokens/s and kernel launches,
+    and prints them."""
     gen = torch.Generator(device=device).manual_seed(0)
     params, optimizer = train.init_sharded(config, mesh, gen, device)
-    eager = plain or train.takes_ulysses(config, mesh, seq, device.type == "cuda")
-    step = train.train_step if eager else train.captured_step
+    step = train.train_step if plain else train.captured_step
     rng = np.random.default_rng(1)
     records = []
     for i in range(steps):

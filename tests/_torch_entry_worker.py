@@ -12,6 +12,15 @@ with the remaining arguments. ``launched`` (``launched_pp``) runs
 (``workloads/launch.py``) gave it. Each prints one JSON line: the rank, the
 losses of each step or each request's tokens (this rank's rows), the world
 size. ``fail-or-hang`` exits 3 as rank 1 and sleeps as any other rank.
+
+Every process that runs a step takes one thread and turns on
+``torch.use_deterministic_algorithms`` (``deterministic``), as the
+train-graph gang worker does: the tests hold two gangs' losses equal with
+``==``, and the embedding lookup's backward (``index_put_`` with
+accumulate) adds a token's rows in no fixed order on two threads. Two
+gangs of two deterministic threads a rank under load have also parted by
+two ulps in a loss, for a cause not found (unloaded, 1 to 8 threads give
+the same bits); one thread works around that open fault.
 """
 
 import json
@@ -31,11 +40,19 @@ def _train_losses(mode, argv):
     return [r["loss"] for r in train.main(argv + ["--device", "cpu"]).records]
 
 
-def launched(mode, argv) -> None:
+def deterministic() -> None:
+    """One thread a process (the ranks share the host's cores) and sums in
+    one order: the same step gives the same bits in every gang."""
     import torch
+
+    torch.set_num_threads(1)
+    torch.use_deterministic_algorithms(True)
+
+
+def launched(mode, argv) -> None:
     import torch.distributed as dist
 
-    torch.set_num_threads(2)  # as the train/serve gangs: the same sums, the same losses
+    deterministic()  # as the train/serve gangs: the same sums, the same losses
 
     try:
         out = {"losses": _train_losses(mode, argv)}
@@ -64,10 +81,9 @@ def main() -> None:
              "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}"}
     os.environ["HIVED_TPU_ENV"] = "".join(f'{k}: "{v}"\n' for k, v in block.items())
 
-    import torch
     import torch.distributed as dist
 
-    torch.set_num_threads(2)  # the ranks share the host's cores
+    deterministic()
 
     from hivedscheduler_tpu_torch import serve
 

@@ -8,7 +8,10 @@ query chunk, and each step case's mesh sizes and sp_mode), ``params.npz``
 (the tiny model's parameters, keys joined by "/") and ``tokens.npz`` from
 ``workdir``. Attention: this rank's shards through ``ulysses_attention`` or
 ``ring_attention``, then backward of sum(out * w); writes its output and
-gradient shards to ``attn_<rank>.npz``. Steps: one sharded train step of
+gradient shards to ``attn_<rank>.npz``. Exchange: this rank's x through
+``sharding.all_to_all`` over sp, then backward of sum(y * w); writes y and
+x's gradient to ``exchange_<rank>.npz`` and counts funcol's and c10d's
+all-to-all calls. Steps: one sharded train step of
 the tiny model per case on this rank's block of the tokens; rank 0 writes
 the gathered gradients to ``grads_<case>.npz``. Counts the calls of
 ``attention.mha`` (and the query heads each took) and of
@@ -87,8 +90,38 @@ def main() -> None:
     def reset():
         routes.update(mha=0, heads=[], ring=0)
 
-    result = {"rank": rank, "attn_routes": {}, "losses": {}, "step_routes": {}}
+    result = {"rank": rank, "attn_routes": {}, "losses": {}, "step_routes": {},
+              "exchange_calls": {}}
     try:
+        import torch.distributed._functional_collectives as funcol
+
+        calls = {"funcol": 0, "c10d": 0}
+
+        def counted(route, inner):
+            def call(*a, **kw):
+                calls[route] += 1
+                return inner(*a, **kw)
+            return call
+
+        data = dict(np.load(os.path.join(workdir, "exchange.npz")))
+        exchanged = {}
+        real = funcol.all_to_all_single, dist.all_to_all_single
+        funcol.all_to_all_single = counted("funcol", real[0])
+        dist.all_to_all_single = counted("c10d", real[1])
+        try:
+            for name, sizes in cases["exchange"].items():
+                mesh = pmesh.make_mesh(pmesh.MeshConfig(**sizes), "cpu")
+                calls.update(funcol=0, c10d=0)
+                x = torch.from_numpy(data[f"{name}/x{rank}"]).requires_grad_()
+                y = sharding.all_to_all(x, mesh, "sp")
+                (y * torch.from_numpy(data[f"{name}/w{rank}"])).sum().backward()
+                result["exchange_calls"][name] = dict(calls)
+                exchanged[f"{name}/y"] = y.detach().numpy()
+                exchanged[f"{name}/dx"] = x.grad.numpy()
+        finally:
+            funcol.all_to_all_single, dist.all_to_all_single = real
+        np.savez(os.path.join(workdir, f"exchange_{rank}.npz"), **exchanged)
+
         data = dict(np.load(os.path.join(workdir, "attn.npz")))
         shards = {}
         for name, case in cases["attn"].items():

@@ -17,8 +17,7 @@ mesh, takes STEPS eager gang steps (each twin's ``train_step``), then
 STEPS owner steps from fresh weights of the same seed. Prints one JSON
 line: each case's losses, the digests of the parameters (with ResNet's
 running statistics) and of the last step's gradients on both sides, and
-the owner's captures and replays; and whether the owner refuses to
-capture a Ulysses step (``ulysses_refused``).
+the owner's captures and replays.
 """
 
 import functools
@@ -29,9 +28,12 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# name -> (mesh sizes, model)
+# name -> (mesh sizes, model); "llama_ulysses": the tiny Llama with
+# sp_mode "ulysses" (on the CPU "auto" takes ring), its attention over sp
+# two all-to-alls a tensor through Ulysses' exchange, forward and backward.
 CASES = {
     "llama-fsdp2_tp2": ({"fsdp": 2, "tp": 2}, "llama"),
+    "llama_ulysses-sp2_tp2": ({"sp": 2, "tp": 2}, "llama_ulysses"),
     "llama-dp2_fsdp2": ({"dp": 2, "fsdp": 2}, "llama"),
     "llama-tp4": ({"tp": 4}, "llama"),
     "mixtral-fsdp2_ep2": ({"fsdp": 2, "ep": 2}, "mixtral"),
@@ -90,8 +92,10 @@ def model_steps(workdir, sizes, kind):
     def local(t):
         return sharding.shard_batch(torch.from_numpy(np.asarray(t)), mesh)
 
-    if kind in ("llama", "pipeline"):
+    if kind in ("llama", "llama_ulysses", "pipeline"):
         config = transformer.tiny()
+        if kind == "llama_ulysses":
+            config = dataclasses.replace(config, sp_mode="ulysses")
         if kind == "pipeline":
             config = dataclasses.replace(config, pp_microbatches=2, remat=True,
                                          remat_policy="flash")
@@ -185,32 +189,6 @@ def case(workdir, sizes, kind):
     }
 
 
-def ulysses_refused():
-    """On sp 2 x tp 2 the tiny Llama's step takes Ulysses under sp_mode
-    "ulysses" (and ring under "auto" on the CPU): the owner refuses to
-    capture the first before any step or collective runs."""
-    import dataclasses
-
-    import torch
-
-    from hivedscheduler_tpu_torch.models import train, transformer
-    from hivedscheduler_tpu_torch.parallel import mesh as pmesh
-
-    mesh = pmesh.make_mesh(pmesh.MeshConfig(sp=2, tp=2), "cpu")
-    auto = transformer.tiny()
-    ulysses = dataclasses.replace(auto, sp_mode="ulysses")
-    tokens = torch.zeros((B, S // 2), dtype=torch.long)  # this rank's columns
-    out = {"auto": train.takes_ulysses(auto, mesh, S, on_cuda=False),
-           "auto_on_cuda": train.takes_ulysses(auto, mesh, S),
-           "ulysses": train.takes_ulysses(ulysses, mesh, S, on_cuda=False),
-           "inactive": train.takes_ulysses(ulysses, None, S)}
-    try:
-        train.captured_step({"w": torch.zeros(1)}, None, tokens, ulysses, "cpu", mesh)
-    except NotImplementedError as e:
-        out["refused"] = str(e)
-    return out
-
-
 def main() -> None:
     rank, world, port, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 
@@ -229,8 +207,7 @@ def main() -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
                             rank=rank)
     try:
-        out = {"rank": rank, "cases": {name: case(workdir, *spec) for name, spec in CASES.items()},
-               "ulysses": ulysses_refused()}
+        out = {"rank": rank, "cases": {name: case(workdir, *spec) for name, spec in CASES.items()}}
     finally:
         dist.destroy_process_group()
     print(json.dumps(out), flush=True)

@@ -675,6 +675,44 @@ def test_cuda_captured_train_step_on_a_one_rank_nccl_mesh(nccl_mesh):
 
 
 @pytest.mark.cuda
+def test_cuda_captured_step_through_the_all_to_all_backward(nccl_mesh):
+    # Ulysses' exchange inside a captured training step on a one-rank NCCL
+    # group (the model skips collectives over one rank, so ``_AllToAll`` is
+    # called directly): its forward, and its backward issued from autograd's
+    # engine, through the owner's warm-up on a side stream and its capture;
+    # the losses and the weights bitwise the eager step's.
+    from hivedscheduler_tpu_torch.models import train
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    x = torch.randn(2, 8, 256, generator=torch.Generator().manual_seed(3)).to("cuda")
+
+    def run(captured):
+        params = {"w": torch.randn(8, 256, generator=torch.Generator().manual_seed(4)).cuda()}
+        opt = train.make_optimizer(params)
+        assert opt.param_groups[0]["capturable"]
+
+        def step(batch):
+            opt.zero_grad(set_to_none=True)
+            y = sharding._AllToAll.apply(batch * params["w"], nccl_mesh, "sp")
+            loss = sharding._AllToAll.apply(y.tanh(), nccl_mesh, "sp").square().mean()
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        owner = train.step_graphs(params, opt)
+        losses = [owner.step(("all_to_all", nccl_mesh), step, params, (x,))[0] if captured
+                  else step(x) for _ in range(3)]
+        return losses, train.tree_digest(params)
+
+    captures = train.StepGraphs.captures
+    graph = run(True)
+    assert train.StepGraphs.captures == captures + 1
+    eager = run(False)
+    assert all(torch.equal(a, b) for a, b in zip(graph[0], eager[0]))
+    assert graph[1] == eager[1]
+
+
+@pytest.mark.cuda
 def test_cuda_a_capture_that_fails_raises(cuda_device):
     # An AdamW whose step count lives on the host cannot be captured: the
     # owner raises (no quiet eager fallback on the card).

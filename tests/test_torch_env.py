@@ -172,6 +172,18 @@ def test_the_per_card_block_wins_over_the_jax_block(monkeypatch, card_block):
     assert mesh.process_rank(env) == (3 if card_block else 1)
 
 
+@pytest.mark.parametrize("given", [None, "1"])
+def test_nccl_env_turns_graph_registration_off_unless_set(monkeypatch, given):
+    # Captured collectives take the eager path's buffers; a value the
+    # environment gives is kept.
+    if given is None:
+        monkeypatch.delenv("NCCL_GRAPH_REGISTER", raising=False)
+    else:
+        monkeypatch.setenv("NCCL_GRAPH_REGISTER", given)
+    mesh.nccl_env()
+    assert os.environ["NCCL_GRAPH_REGISTER"] == (given or "0")
+
+
 def test_bootstrap_returns_the_per_card_rank_and_keeps_its_card(monkeypatch):
     _clear(monkeypatch, *JAX_BLOCK, *CARD_BLOCK, common.ENV_BLOCK_VAR)
     for k, v in CARD_BLOCK.items():

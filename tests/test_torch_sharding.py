@@ -261,6 +261,15 @@ def test_dryrun_four_processes():
                for row in result["rows"] if row != "ep-moe")
 
 
+def test_dryrun_record_is_empty_when_every_rank_ends(tmp_path):
+    # --record arms each rank's stack dump and its process group's timeout;
+    # a gang that ends in time leaves empty stacks and no recorder dump.
+    result = dryrun.dryrun(2, rows=("fsdp",), device="cpu", timeout=300, record=str(tmp_path))
+    assert abs(result["rows"]["fsdp"] - result["reference"]) <= dryrun.TOL
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["rank0.stacks", "rank1.stacks"]
+    assert all(p.stat().st_size == 0 for p in tmp_path.iterdir())
+
+
 def test_dryrun_without_a_device_needs_cuda(monkeypatch):
     # As every entry point of the port: CUDA unless the CPU is asked for,
     # and no process is started when there is none.

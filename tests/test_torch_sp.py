@@ -11,7 +11,10 @@ their largest). The same gang takes one sharded train step of the tiny
 model on the dryrun's ``fsdp_sp_tp`` and ``ulysses-sp`` layouts and on
 sp 4 with either backend, held against JAX's ``train_step`` and the port's
 one-process step: seeded tokens catch a target lost at a shard boundary
-and a gradient not summed over sp.
+and a gradient not summed over sp. It also runs Ulysses' exchange
+(``sharding.all_to_all``) alone over sp 4 and over sp 2 x tp 2, forward
+and backward, held bit for bit against the plain chunk exchange and to
+its collective route (funcol's all-to-all, never c10d's synchronous one).
 """
 
 import json
@@ -64,6 +67,9 @@ STEPS = {
     "sp4_ring_rng": (SP4, "ring", "rng"),
     "sp4_ulysses_rng": (SP4, "ulysses", "rng"),
 }
+# name: mesh of Ulysses' exchange alone; each rank's input and cotangent
+# are [sp, 3, 5], dim 0 the axis size in equal chunks.
+EXCHANGE = {"sp4": SP4, "sp2_tp2": SP2TP2}
 TOKENS = {"zeros": np.zeros((4, 256), np.int64),
           "rng": np.random.default_rng(0).integers(0, 512, (4, 256))}
 CONFIG = transformer.tiny()
@@ -75,6 +81,14 @@ def _inputs(name):
     return {t: rng.standard_normal(shape).astype(np.float32) for t, shape in
             (("q", (B, S, h, D)), ("k", (B, S, hkv, D)), ("v", (B, S, hkv, D)),
              ("w", (B, S, h, D)))}
+
+
+def _exchange_inputs(name):
+    """Each rank's input x and cotangent w of the exchange case."""
+    sp = EXCHANGE[name]["sp"]
+    rng = np.random.default_rng(100 + sorted(EXCHANGE).index(name))
+    return {f"{t}{r}": rng.standard_normal((sp, 3, 5)).astype(np.float32)
+            for r in range(4) for t in "xw"}
 
 
 def _flat(tree, prefix=""):
@@ -94,8 +108,12 @@ def gang(tmp_path_factory, jax_params):
     work = tmp_path_factory.mktemp("sp")
     inputs = {name: _inputs(name) for name in ATTN}
     np.savez(work / "attn.npz", **{f"{n}/{t}": a for n, d in inputs.items() for t, a in d.items()})
+    exchange = {name: _exchange_inputs(name) for name in EXCHANGE}
+    np.savez(work / "exchange.npz",
+             **{f"{n}/{t}": a for n, d in exchange.items() for t, a in d.items()})
     cases = {"attn": {n: {"mesh": m, "backend": be, "causal": c, "q_chunk": qc}
                       for n, (m, be, _, _, c, qc) in ATTN.items()},
+             "exchange": EXCHANGE,
              "step": {n: {"mesh": m, "sp_mode": mode, "tokens": t}
                       for n, (m, mode, t) in STEPS.items()}}
     (work / "cases.json").write_text(json.dumps(cases))
@@ -104,7 +122,9 @@ def gang(tmp_path_factory, jax_params):
     port = str(free_port())
     outs = run_workers(WORKER, [[str(r), "4", port, str(work)] for r in range(4)], timeout=400)
     shards = [dict(np.load(work / f"attn_{r}.npz")) for r in range(4)]
-    return {"outs": outs, "work": work, "shards": shards, "inputs": inputs}
+    exchanged = [dict(np.load(work / f"exchange_{r}.npz")) for r in range(4)]
+    return {"outs": outs, "work": work, "shards": shards, "inputs": inputs,
+            "exchange": exchange, "exchanged": exchanged}
 
 
 def _assemble(shards, name, t, mesh):
@@ -159,6 +179,30 @@ def test_attention_routes(gang, name):
             assert got == {"mha": 1, "heads": [heads], "ring": 0}
         else:  # ring's local step is plain torch: no mha call
             assert got == {"mha": 0, "heads": [], "ring": 1}
+
+
+@pytest.mark.parametrize("name", sorted(EXCHANGE))
+def test_all_to_all_is_the_plain_chunk_exchange_bitwise(gang, name):
+    # Rank r (sp index s, tp index t) receives chunk s of each sp peer's
+    # input, in the peers' sp order; backward sends each peer its chunk of
+    # the cotangent back: dx[j] = chunk s of peer j's cotangent.
+    sizes, data = EXCHANGE[name], gang["exchange"][name]
+    sp, tp = sizes["sp"], sizes.get("tp", 1)
+    for r in range(4):
+        s, t = divmod(r, tp)
+        peers = [i * tp + t for i in range(sp)]
+        got = gang["exchanged"][r]
+        assert np.array_equal(got[f"{name}/y"], np.stack([data[f"x{p}"][s] for p in peers]))
+        assert np.array_equal(got[f"{name}/dx"], np.stack([data[f"w{p}"][s] for p in peers]))
+
+
+@pytest.mark.parametrize("name", sorted(EXCHANGE))
+def test_all_to_all_takes_the_collective_route_that_captures(gang, name):
+    # One funcol all-to-all forward and one backward (its async call, then
+    # wait_tensor, as every other collective of a step), no synchronous
+    # c10d all-to-all, whose NCCL call runs on the calling thread's stream.
+    for o in gang["outs"]:
+        assert o["exchange_calls"][name] == {"funcol": 2, "c10d": 0}
 
 
 @pytest.fixture(scope="module")

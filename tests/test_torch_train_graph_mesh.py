@@ -10,11 +10,13 @@ steps of each case through the owner and three eager gang steps from the
 same weights: the tiny Llama from the JAX package's ``init`` (PRNGKey(0))
 on fsdp2 x tp2, dp2 x fsdp2 and tp4; Mixtral tiny on fsdp2 x ep2; BERT
 tiny on dp2 x tp2; an f64 ResNet (width 16) on dp4; the tiny Llama's
-pipeline on pp2 x tp2. Each case's owner steps must be the eager steps bit
-for bit, with one capture; the Llama's losses must be JAX's within RTOL.
-A step whose attention over sp is Ulysses' is refused by the owner.
+pipeline on pp2 x tp2; the tiny Llama on sp2 x tp2 with sp_mode "ulysses"
+(Ulysses' all-to-alls inside the step, forward and backward). Each case's
+owner steps must be the eager steps bit for bit, with one capture; the
+Llama's losses must be JAX's within RTOL, at the case's sp_mode.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -38,7 +40,7 @@ from .test_torch_train_graph import ADAM, RTOL
 
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_train_graph_mesh_worker.py")
 TOKENS = np.random.default_rng(5).integers(0, 512, (STEPS, B, S))
-LLAMA = [name for name, (_, kind) in CASES.items() if kind == "llama"]
+LLAMA = [name for name, (_, kind) in CASES.items() if kind in ("llama", "llama_ulysses")]
 
 
 def _flat(tree, prefix=""):
@@ -70,10 +72,12 @@ def gang(ranks):
 
 def jax_losses(masters, name):
     """The JAX package's jitted, sharded, donating step on a JAX mesh of
-    the case's layout (the virtual CPU devices), from the same weights and
-    batches."""
-    sizes, _ = CASES[name]
+    the case's layout (the virtual CPU devices) at the case's sp_mode,
+    from the same weights and batches."""
+    sizes, kind = CASES[name]
     config = JT.tiny()
+    if kind == "llama_ulysses":
+        config = dataclasses.replace(config, sp_mode="ulysses")
     mesh = jmesh.make_mesh(jmesh.MeshConfig(**sizes), devices=jax.devices()[:4])
     optimizer = JTR.make_optimizer()
     with jax.set_mesh(mesh):
@@ -124,16 +128,6 @@ def test_owner_llama_losses_match_jax_on_a_mesh(gang, masters, name):
     want = jax_losses(masters, name)
     for cases in gang.values():
         np.testing.assert_allclose(cases[name]["owner"]["losses"], want, rtol=RTOL)
-
-
-def test_the_owner_refuses_to_capture_a_ulysses_step(ranks):
-    # Ulysses' captured step is not ported yet (it hung on the card): the
-    # owner raises before any collective; ring ("auto" on the CPU) is let through.
-    for out in ranks.values():
-        got = out["ulysses"]
-        assert (got["auto"], got["auto_on_cuda"], got["ulysses"], got["inactive"]) == (
-            False, True, True, False)
-        assert "Ulysses" in got["refused"]
 
 
 @pytest.fixture
