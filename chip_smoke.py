@@ -297,7 +297,8 @@ the losses of each, whether they and the digests are equal, and with
 name and power limit, then one JSON object with each kernel's numbers (its
 ``launches_by_path``: serve, train, workloads, perf, sharded, longctx,
 bert, mixtral, zoo: the perf harness's zoo stage with phase 12); the last
-line is ``{"ok": true, "device": {...}}``. Each
+line is ``{"ok": true, "device": {...}}``, as it is after ``--gang-only``'s gangs
+(its ``count`` the cards seen). Each
 kernel's ``tp_shapes`` holds its numbers at phase 3's per-rank tp shapes,
 ``sp_shapes`` at the Ulysses per-rank shapes, ``bert_shapes`` at BERT's,
 ``pp_shapes`` at the pipeline stage's and ``mixtral_shapes`` at Mixtral's
@@ -1928,7 +1929,7 @@ def check_gang(name: str, one: list, ranks_records: list, launches, gated_steps=
     if any(len(recs) != len(one) for recs in ranks_records):
         raise AssertionError(f"{name}: {[len(r) for r in ranks_records]} steps from {ranks} "
                              f"ranks, not {len(one)} each")
-    losses, step_ms = [], []
+    losses, step_ms, parted = [], [], []
     for i, r in enumerate(one):
         mine = [recs[i] for recs in ranks_records]
         got = {st["loss"] for st in mine}
@@ -1936,7 +1937,7 @@ def check_gang(name: str, one: list, ranks_records: list, launches, gated_steps=
             raise AssertionError(f"{name} step {i}: the ranks report different losses {got}")
         losses.append(got.pop())
         if (gated_steps is None or i < gated_steps) and abs(losses[-1] - r["loss"]) > GANG_TOL:
-            raise AssertionError(f"{name} step {i}: gang loss {losses[-1]} vs one card {r['loss']}")
+            parted.append(f"{name} step {i}: gang loss {losses[-1]} vs one card {r['loss']}")
         step_ms.append(max(st["step_ms"] for st in mine))
         for st in mine:
             want = launches if isinstance(launches, dict) else dict.fromkeys(st["launches"],
@@ -1955,6 +1956,8 @@ def check_gang(name: str, one: list, ranks_records: list, launches, gated_steps=
         one_card_replays_after_first_ms_mean=one_later_ms,
         speedup_after_first_replay=one_later_ms / later_ms,
         launches_per_rank_step=launches, **fields)
+    if parted:  # after the line above, so that a failing gate leaves its figures
+        raise AssertionError(parted[0])
     return {k: [sum(st["launches"][k] for st in recs) for recs in ranks_records]
             for k in ranks_records[0][0]["launches"]}
 
@@ -3178,6 +3181,14 @@ def rank_shapes(kb: dict, group: str, kind: str) -> list:
     return rows
 
 
+def print_ok(torch) -> None:
+    """The last line: the run passed, on these cards."""
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="smoke run of the port on one card")
     parser.add_argument("--seed", type=int, default=0)
@@ -3243,6 +3254,7 @@ def main() -> int:
         if timed("gang", phase_gang, args.profile, gangs) < 2:
             raise AssertionError("--gang-only needs two cards or more")
         print(smi)
+        print_ok(torch)
         return 0
     k = timed("kernels", phase_kernels, args.seed)
     kb = timed("kernels_bwd", phase_kernels_bwd, args.seed)
@@ -3316,10 +3328,7 @@ def main() -> int:
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
+    print_ok(torch)
     return 0
 
 

@@ -35,7 +35,6 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
-from torch.utils.checkpoint import checkpoint
 
 from .. import Device, resolve_device
 from ..ops.attention import add_launches, kernel_launches
@@ -50,24 +49,63 @@ Params = transformer.Params
 FUSED_LOSS_MIN_VOCAB = 32768
 _LOSS_CHUNK = 8192  # vocab elements per chunk
 
-Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) accumulated and returned in f32 (in ``a``'s dtype
+    when that is f32 or wider): on the card one cuBLAS call with an f32
+    output at the bf16 rate."""
+    if a.dtype in (torch.float32, torch.float64):
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
 
 
-def _ce_update(carry: Carry, x: torch.Tensor, w: torch.Tensor,
-               targets: torch.Tensor, start: int) -> Carry:
-    """One vocab chunk of the online logsumexp: carry (running max m, running
-    sum s of exp(logit - m), the target's logit tl). m is taken from detached
-    logits: the logsumexp m + log(s) does not depend on it, so its gradient
-    is exactly the softmax either way, without the m terms that cancel."""
-    m, s, tl = carry
-    logits = (x @ w).float()  # [N, width]
-    width = logits.shape[1]
-    m_new = torch.maximum(m, logits.detach().amax(dim=-1))
-    s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
-    local = targets - start
-    in_chunk = (local >= 0) & (local < width)
-    picked = logits.gather(1, local.clamp(0, width - 1)[:, None])[:, 0]
-    return m_new, s, torch.where(in_chunk, picked, tl)
+class _ChunkedCE(torch.autograd.Function):
+    """Mean cross-entropy of ``x @ head`` without [N, V] logits: an online
+    logsumexp over vocab chunks, each chunk's logits recomputed in
+    backward, so the memory is O(N * chunk). Backward sums ``x``'s gradient
+    over the chunks in f32 and rounds it once, so that the chunk count
+    does not move it: summed in bf16 chunk by chunk, a one-card step's
+    losses parted from a tp gang's, whose vocab-parallel loss has no
+    chunks, by 2e-2 in five steps (ROADMAP F8)."""
+
+    @staticmethod
+    def forward(ctx, x, head, targets, chunk):
+        n = x.shape[0]
+        m = torch.full((n,), -torch.inf, dtype=torch.float32, device=x.device)
+        s = torch.zeros(n, dtype=torch.float32, device=x.device)
+        tl = torch.zeros(n, dtype=torch.float32, device=x.device)
+        for i, w in enumerate(head.split(chunk, dim=1)):
+            logits = (x @ w).float()  # [N, width]
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
+            m = m_new
+            local = targets - i * chunk
+            in_chunk = (local >= 0) & (local < w.shape[1])
+            picked = logits.gather(1, local.clamp(0, w.shape[1] - 1)[:, None])[:, 0]
+            tl = torch.where(in_chunk, picked, tl)
+        lse = m + torch.log(s)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, head, targets, lse)
+        return torch.mean(lse - tl)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, head, targets, lse = ctx.saved_tensors
+        scale = grad / x.shape[0]
+        grad_x = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grad_head = []
+        for i, w in enumerate(head.split(ctx.chunk, dim=1)):
+            # d loss / d logits: (softmax - onehot) / N, rounded to the
+            # compute dtype as the f32 logits' cast back rounds it.
+            p = torch.exp((x @ w).float() - lse[:, None])
+            local = targets - i * ctx.chunk
+            hit = (local >= 0) & (local < w.shape[1])
+            p.scatter_add_(1, local.clamp(0, w.shape[1] - 1)[:, None], -hit.to(p.dtype)[:, None])
+            p = (p * scale).to(x.dtype)
+            grad_x += _mm_f32(p, w.T)
+            grad_head.append(x.T @ p)
+        return grad_x.to(x.dtype), torch.cat(grad_head, dim=1), None, None
 
 
 def _chunked_ce(
@@ -76,21 +114,10 @@ def _chunked_ce(
     targets: torch.Tensor,  # [N] int
     chunk: int,
 ) -> torch.Tensor:
-    """Exact mean cross-entropy without [N, V] logits: an online logsumexp
-    over vocab chunks, each chunk checkpointed (its logits are recomputed in
-    backward), so the memory is O(N * chunk). A vocab that the chunk does
-    not divide ends in one narrower chunk."""
-    n = x.shape[0]
-    carry = (
-        torch.full((n,), -torch.inf, dtype=torch.float32, device=x.device),
-        torch.zeros(n, dtype=torch.float32, device=x.device),
-        torch.zeros(n, dtype=torch.float32, device=x.device),
-    )
-    # split: one backward node concatenates the chunks' head gradients.
-    for i, w in enumerate(head.split(chunk, dim=1)):
-        carry = checkpoint(_ce_update, carry, x, w, targets, i * chunk, use_reentrant=False)
-    m, s, tl = carry
-    return torch.mean(m + torch.log(s) - tl)
+    """Exact mean cross-entropy over vocab chunks of ``chunk`` columns
+    (:class:`_ChunkedCE`); a vocab that the chunk does not divide ends in
+    one narrower chunk."""
+    return _ChunkedCE.apply(x, head, targets, chunk)
 
 
 def next_token_loss(

@@ -144,13 +144,14 @@ def main() -> None:
     import torch
     import torch.distributed as dist
 
+    from tests._torch_rendezvous import join
+
     from hivedscheduler_tpu_torch.models import generate
 
     torch.set_num_threads(2)  # the ranks share the host's cores
     generate._graphed = lambda x: True
     generate._capture = rerun_capture
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                            rank=rank)
+    join(port, world, rank)  # a client of the test's store
     try:
         out = {"rank": rank,
                "cases": {name: case(workdir, *spec) for name, spec in CASES.items()}}

@@ -8,9 +8,10 @@ block of a shared token file through ``sharded_batches``. Run as:
     python _torch_env_worker.py '<env-block-yaml>' <coordinator-port> <token-file>
 
 The scheduler emits real cluster hostnames in JAX_COORDINATOR_ADDRESS; they
-do not resolve inside the test harness, so the coordinator host is
-rewritten to loopback. The rank and the world size are the block's own.
-Prints one JSON line.
+do not resolve inside the test harness, so the coordinator address is
+rewritten to the store the test holds on loopback (``_torch_rendezvous``),
+which every rank joins as a client. The rank and the world size are the
+block's own. Prints one JSON line.
 """
 
 import json
@@ -29,7 +30,9 @@ def main() -> None:
     from hivedscheduler_tpu_torch.parallel import mesh as pmesh
     from hivedscheduler_tpu_torch.utils import data
     from hivedscheduler_tpu_torch.workloads.common import parse_env_block
+    from tests._torch_rendezvous import AGENT_STORE
 
+    os.environ.update(AGENT_STORE)
     env = parse_env_block(block)
     env["JAX_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
     pmesh.initialize_from_env(env, device="cpu")

@@ -101,9 +101,10 @@ def main() -> None:
     import torch
     import torch.distributed as dist
 
+    from tests._torch_rendezvous import join
+
     torch.set_num_threads(2)  # the ranks share the host's cores
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                            rank=rank)
+    join(port, world, rank)  # a client of the test's store
     try:
         out = gang(rank, workdir)
     finally:

@@ -195,6 +195,8 @@ def main() -> None:
     import torch
     import torch.distributed as dist
 
+    from tests._torch_rendezvous import join
+
     from hivedscheduler_tpu_torch.models import train
 
     torch.set_num_threads(1)  # the ranks share the host's cores
@@ -204,8 +206,7 @@ def main() -> None:
     adam._get_capturable_supported_devices = lambda supports_xla=True: ["cuda", "cpu"]
     train._graphed = lambda t: True
     train.capturable = lambda leaves, asked=None: True if asked is None else asked
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                            rank=rank)
+    join(port, world, rank)  # a client of the test's store
     try:
         out = {"rank": rank, "cases": {name: case(workdir, *spec) for name, spec in CASES.items()}}
     finally:

@@ -29,7 +29,8 @@ from hivedscheduler_tpu.models import bert as JB
 from hivedscheduler_tpu_torch.models import bert, convert
 from hivedscheduler_tpu_torch.workloads import train_bert
 
-from ._multiproc import free_port, run_workers
+from ._multiproc import run_workers
+from ._torch_rendezvous import gang_store
 
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_bert_worker.py")
 FWD = {"atol": 2e-4, "rtol": 2e-3}
@@ -214,8 +215,9 @@ def gang(tmp_path_factory, jax_params):
         {n: {"mesh": m, "targets": t} for n, (m, t) in CASES.items()}))
     np.savez(work / "params.npz", **_flat(jax_params))
     np.savez(work / "batch.npz", **BATCH)
-    port = str(free_port())
-    outs = run_workers(WORKER, [[str(r), "4", port, str(work)] for r in range(4)], timeout=300)
+    with gang_store(4) as port:
+        outs = run_workers(WORKER, [[str(r), "4", str(port), str(work)] for r in range(4)],
+                           timeout=300)
     return {"outs": outs, "work": work}
 
 

@@ -137,6 +137,33 @@ def test_cuda_flash_bwd_kernels_are_deterministic(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_fused_loss_rounds_the_input_gradient_once_in_bf16(cuda_device):
+    # ROADMAP F8 on the card: ``_mm_f32`` is one bf16 cuBLAS call with an
+    # f32 output (the f32 product of the same values), and the fused loss's
+    # input gradient does not depend on its chunk count beyond f32 order.
+    from hivedscheduler_tpu_torch.models import train
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    a = torch.randn(1024, 4096, generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn(4096, 1024, generator=gen, device=cuda_device).to(torch.bfloat16)
+    got = train._mm_f32(a, w)
+    want = a.double() @ w.double()
+    assert got.dtype == torch.float32 and got.shape == (1024, 1024)
+    # f32 accumulation error, far below the bf16 output's rounding.
+    bf16_err = (want.to(torch.bfloat16).double() - want).abs().max().item()
+    assert (got.double() - want).abs().max().item() <= 1e-2 * bf16_err
+    x = torch.randn(256, 512, generator=gen, device=cuda_device).to(torch.bfloat16)
+    head = (torch.randn(512, 32768, generator=gen, device=cuda_device) / 16).to(torch.bfloat16)
+    targets = torch.randint(0, 32768, (256,), generator=gen, device=cuda_device)
+    grads = []
+    for chunk in (8192, 32768):
+        tx = x.clone().requires_grad_()
+        train._chunked_ce(tx, head, targets, chunk).backward()
+        grads.append(tx.grad)
+    assert (grads[0] != grads[1]).float().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
 def test_cuda_tiny_train_step_matches_cpu(cuda_device):
     # The training step on the card (f32 kernels, head_dim 32, remat
     # "flash") against the same step on the CPU (the plain versions).
@@ -288,20 +315,21 @@ def test_cuda_int8_on_a_one_rank_nccl_mesh_gives_the_unsharded_tokens(cuda_devic
     from hivedscheduler_tpu_torch.parallel import mesh as pmesh
     from hivedscheduler_tpu_torch.parallel import sharding
 
-    from ._multiproc import free_port
+    from ._torch_rendezvous import gang_store, join
 
     config, params = serve.build("tiny", 3, cuda_device, int8=True)
     prompt = torch.randint(0, config.vocab_size, (2, 256),
                            generator=torch.Generator().manual_seed(4)).to(cuda_device)
     want = serve.run_request(params, prompt, config, 8)
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
-                            world_size=1, rank=0)
-    try:
-        mesh = pmesh.make_mesh(pmesh.MeshConfig(), "cuda")
-        _, sharded = serve.build("tiny", 3, cuda_device, int8=True, mesh=mesh)
-        got = serve.run_request(sharded, sharding.shard_batch(prompt, mesh), config, 8, mesh=mesh)
-    finally:
-        dist.destroy_process_group()
+    with gang_store(1) as port:
+        join(port, 1, 0, "nccl")
+        try:
+            mesh = pmesh.make_mesh(pmesh.MeshConfig(), "cuda")
+            _, sharded = serve.build("tiny", 3, cuda_device, int8=True, mesh=mesh)
+            got = serve.run_request(sharded, sharding.shard_batch(prompt, mesh), config, 8,
+                                    mesh=mesh)
+        finally:
+            dist.destroy_process_group()
     assert want["flash_launches"] == got["flash_launches"] == config.n_layers
     assert torch.equal(got["tokens"], want["tokens"])
 
@@ -425,14 +453,14 @@ def nccl_mesh(cuda_device):
 
     from hivedscheduler_tpu_torch.parallel import mesh as pmesh
 
-    from ._multiproc import free_port
+    from ._torch_rendezvous import gang_store, join
 
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
-                            world_size=1, rank=0)
-    try:
-        yield pmesh.make_mesh(pmesh.MeshConfig(), "cuda")
-    finally:
-        dist.destroy_process_group()
+    with gang_store(1) as port:
+        join(port, 1, 0, "nccl")
+        try:
+            yield pmesh.make_mesh(pmesh.MeshConfig(), "cuda")
+        finally:
+            dist.destroy_process_group()
 
 
 @pytest.mark.cuda

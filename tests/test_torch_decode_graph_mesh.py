@@ -26,7 +26,8 @@ from hivedscheduler_tpu.models import transformer as JT
 from hivedscheduler_tpu.parallel import mesh as jmesh
 from hivedscheduler_tpu.parallel import sharding as JS
 
-from ._multiproc import free_port, run_workers
+from ._multiproc import run_workers
+from ._torch_rendezvous import gang_store
 from ._torch_decode_mesh_worker import CASES, DECODE_STEPS, NEW_TOKENS
 
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_decode_mesh_worker.py")
@@ -54,8 +55,9 @@ def gang(tmp_path_factory, masters):
     for name, tree in masters.items():
         np.savez(work / f"{name}.npz", **_flat(tree))
     np.save(work / "prompts.npy", PROMPTS)
-    port = str(free_port())
-    outs = run_workers(WORKER, [[str(r), "4", port, str(work)] for r in range(4)], timeout=300)
+    with gang_store(4) as port:
+        outs = run_workers(WORKER, [[str(r), "4", str(port), str(work)] for r in range(4)],
+                           timeout=300)
     return {o["rank"]: o["cases"] for o in outs}
 
 

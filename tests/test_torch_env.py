@@ -29,10 +29,12 @@ from hivedscheduler_tpu_torch.gpu import topology
 from hivedscheduler_tpu_torch.parallel import mesh
 from hivedscheduler_tpu_torch.workloads import common, launch
 
-from ._multiproc import free_port, run_workers
+from ._torch_entry_worker import OUT_DIR as ENTRY_OUT_DIR
+from ._torch_entry_worker import parting_leaf
+from ._torch_rendezvous import AGENT_STORE, gang_store
+from .test_torch_workloads import gang
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ENTRY_WORKER = os.path.join(ROOT, "tests", "_torch_entry_worker.py")
 
 
 def random_gang(seed: int):
@@ -220,52 +222,61 @@ def _two_pods():
                             affinity_group_bind_info=members) for p in members[0].pod_placements]
 
 
-def _launcher(bind_info, module_argv, tmp_path, name, timeout=None, env_block=None, port=None):
+def _launcher(bind_info, module_argv, tmp_path, name, port, timeout=None, env_block=None,
+              extra_env=None):
+    """The pod's launcher for ``bind_info``, its gang's rendezvous at the
+    test's store on ``port`` (``gang_store``): every rank joins it as a
+    client (``AGENT_STORE``), while the launcher and the boot code run as
+    they run under HiveD."""
     path = tmp_path / f"{name}.json"
     path.write_text(json.dumps(bind_info.to_dict()))
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS", *CARD_BLOCK)}
+    env.update(AGENT_STORE, **(extra_env or {}))
     if env_block is not None:
         env[common.ENV_BLOCK_VAR] = jcommon.to_yaml_fast(env_block)
     cmd = [sys.executable, "-m", "hivedscheduler_tpu_torch.workloads.launch",
-           "--bind-info", str(path), "--master-port", str(port or free_port())]
+           "--bind-info", str(path), "--master-port", str(port)]
     if timeout is not None:
         cmd += ["--timeout", str(timeout)]
     return subprocess.Popen(cmd + ["--", *module_argv], cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def _json_lines(text):
-    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+def launched_pods(mode, argv, tmp_path):
+    """The entry worker's ``mode`` (``launched``, ``launched_pp``) with
+    ``argv`` on the two pods of ``_two_pods`` as their launchers start it,
+    one gang of four ranks on a store of its own; each rank's result."""
+    out_dir = tmp_path / f"{mode}_out"
+    out_dir.mkdir()
+    with gang_store(4) as port:
+        procs = [_launcher(info, ["tests._torch_entry_worker", mode, *argv], tmp_path,
+                           f"pod{i}", port, timeout=240, env_block=pod_tpu_env(info),
+                           extra_env={ENTRY_OUT_DIR: str(out_dir)})
+                 for i, info in enumerate(_two_pods())]
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=300)
+                assert p.returncode == 0, err[-3000:]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    return [json.loads(f.read_text()) for f in sorted(out_dir.glob("rank*.json"))]
 
 
 def test_two_launched_pods_train_like_a_gang_booted_from_jax_blocks(tmp_path):
     argv = ["--model", "tiny", "--seq", "64", "--steps", "2"]
-    port = free_port()
-    pods = _two_pods()
-    procs = [_launcher(info, ["tests._torch_entry_worker", "launched", *argv], tmp_path,
-                       f"pod{i}", timeout=240, env_block=pod_tpu_env(info), port=port)
-             for i, info in enumerate(pods)]
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=300)
-            assert p.returncode == 0, err[-3000:]
-            outs += _json_lines(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    ref_port = str(free_port())
-    ref = run_workers(ENTRY_WORKER, [["train", str(r), "4", ref_port, *argv] for r in range(4)],
-                      timeout=240)
+    outs = launched_pods("launched", argv, tmp_path)
+    ref = gang("train", 4, argv)
     assert sorted(o["rank"] for o in outs) == [0, 1, 2, 3]
     for o in outs:
         # The per-card block won over the pod's JAX block (2 processes).
         assert o["world"] == 4 and o["env"]["JAX_NUM_PROCESSES"] == "2"
         assert o["env"]["WORLD_SIZE"] == "4" and o["env"]["RANK"] == str(o["rank"])
-        assert o["losses"] == ref[0]["losses"], (o, ref[0])
+        assert o["losses"] == ref[0]["losses"], (o["losses"], ref[0]["losses"],
+                                                 parting_leaf(outs, ref))
     by_rank = {o["rank"]: o["env"]["CUDA_VISIBLE_DEVICES"] for o in outs}
     assert by_rank == {0: "0", 1: "1", 2: "5", 3: "4"}  # localhost is worker 0
 
@@ -277,8 +288,9 @@ def test_the_launcher_never_waits_on_a_dead_rank(tmp_path, case):
     # failing (its pod holds ranks 2 and 3), so both sleep past --timeout.
     pod = info if case == "child_fails" else _two_pods()[0]
     t0 = time.monotonic()
-    p = _launcher(pod, ["tests._torch_entry_worker", "fail-or-hang"], tmp_path, case,
-                  timeout=3 if case == "timeout" else 120)
-    _, err = p.communicate(timeout=60)
+    with gang_store(4) as port:  # the ranks never meet
+        p = _launcher(pod, ["tests._torch_entry_worker", "fail-or-hang"], tmp_path, case, port,
+                      timeout=3 if case == "timeout" else 120)
+        _, err = p.communicate(timeout=60)
     assert time.monotonic() - t0 < 60
     assert p.returncode == (3 if case == "child_fails" else launch.TIMEOUT_EXIT), err[-2000:]

@@ -30,7 +30,8 @@ from hivedscheduler_tpu_torch.models import checkpoint, convert, generate, quant
 from hivedscheduler_tpu_torch.models import transformer
 from hivedscheduler_tpu_torch.parallel import sharding
 
-from ._multiproc import free_port, run_workers
+from ._multiproc import run_workers
+from ._torch_rendezvous import gang_store
 from ._torch_int8_worker import LAYOUTS, NEW_TOKENS, _flat
 
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_int8_worker.py")
@@ -71,8 +72,9 @@ def gang(tmp_path_factory, masters):
     params = convert.params_from_jax(masters, device="cpu")
     checkpoint.TrainCheckpointer(str(work / "ckpt")).save(1, params,
                                                         train.make_optimizer(params))
-    port = str(free_port())
-    outs = run_workers(WORKER, [[str(r), "4", port, str(work)] for r in range(4)], timeout=300)
+    with gang_store(4) as port:
+        outs = run_workers(WORKER, [[str(r), "4", str(port), str(work)] for r in range(4)],
+                           timeout=300)
     return {"outs": outs, "work": work}
 
 

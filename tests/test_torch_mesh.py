@@ -20,7 +20,8 @@ from hivedscheduler_tpu_torch.parallel import mesh as TM
 from hivedscheduler_tpu_torch.utils import data as TD
 from hivedscheduler_tpu_torch.workloads.common import parse_env_block
 
-from ._multiproc import free_port, run_workers
+from ._multiproc import run_workers
+from ._torch_rendezvous import gang_store
 from .test_core import Sim, make_pod
 
 common.init_logging(logging.ERROR)
@@ -86,8 +87,8 @@ def test_gang_env_blocks_boot_a_two_process_gloo_group(tmp_path):
     path = tmp_path / "tokens.bin"
     np.random.default_rng(3).integers(0, 500, size=2048, dtype=np.uint16).tofile(path)
     worker = os.path.join(os.path.dirname(__file__), "_torch_env_worker.py")
-    port = str(free_port())
-    outs = run_workers(worker, [[b, port, str(path)] for b in blocks], timeout=120)
+    with gang_store(GANG_SIZE) as port:
+        outs = run_workers(worker, [[b, str(port), str(path)] for b in blocks], timeout=120)
 
     assert sorted(o["rank"] for o in outs) == sorted(int(e["JAX_PROCESS_ID"]) for e in envs)
     assert sorted(o["rank"] for o in outs) == list(range(GANG_SIZE))

@@ -30,7 +30,8 @@ from hivedscheduler_tpu_torch.models import checkpoint, convert, mixtral
 from hivedscheduler_tpu_torch.tools import dryrun
 from hivedscheduler_tpu_torch.workloads import train_mixtral
 
-from ._multiproc import free_port, run_workers
+from ._multiproc import run_workers
+from ._torch_rendezvous import gang_store
 
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_mixtral_worker.py")
 CASES = {
@@ -109,8 +110,9 @@ def gang(tmp_path_factory, jax_params):
     ckpt = checkpoint.TrainCheckpointer(str(work / "ckpt"))
     ckpt.save(1, params, opt)
     ckpt.close()
-    port = str(free_port())
-    outs = run_workers(WORKER, [[str(r), "4", port, str(work)] for r in range(4)], timeout=360)
+    with gang_store(4) as port:
+        outs = run_workers(WORKER, [[str(r), "4", str(port), str(work)] for r in range(4)],
+                           timeout=360)
     return {"outs": outs, "work": work}
 
 

@@ -32,7 +32,6 @@ from hivedscheduler_tpu.models import train as JTR
 from hivedscheduler_tpu.models import transformer as JT
 from hivedscheduler_tpu.parallel import mesh as jmesh
 from hivedscheduler_tpu.parallel import pipeline as jpipeline
-from hivedscheduler_tpu.tpu.env import pod_tpu_env
 from hivedscheduler_tpu_torch import serve
 from hivedscheduler_tpu_torch.models import checkpoint, convert, train, transformer
 from hivedscheduler_tpu_torch.parallel import mesh as pmesh
@@ -40,8 +39,11 @@ from hivedscheduler_tpu_torch.parallel import pipeline, sharding
 from hivedscheduler_tpu_torch.tools import dryrun
 from hivedscheduler_tpu_torch.workloads import train_pp
 
-from ._multiproc import free_port, run_workers
-from .test_torch_env import ENTRY_WORKER, _json_lines, _launcher, _two_pods
+from ._multiproc import run_workers
+from ._torch_entry_worker import parting_leaf
+from ._torch_rendezvous import gang_store
+from .test_torch_env import launched_pods
+from .test_torch_workloads import gang as entry_gang
 
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_pipeline_worker.py")
 FWD_TOL, GRAD_REL = 1e-5, 1e-4
@@ -129,10 +131,10 @@ def gang(tmp_path_factory, jax_params):
     checkpoint.TrainCheckpointer(str(work / "ckpt_one")).save(1, params, opt)
     outs = {}
     for world in (4, 8):
-        port = str(free_port())
-        outs[world] = run_workers(WORKER, [[str(r), str(world), port, str(work),
-                                            f"cases{world}.json"] for r in range(world)],
-                                  timeout=400)
+        with gang_store(world) as port:
+            outs[world] = run_workers(WORKER, [[str(r), str(world), str(port), str(work),
+                                                f"cases{world}.json"] for r in range(world)],
+                                      timeout=400)
     return {"outs": outs[4], "outs8": outs[8], "work": work, "inputs": inputs,
             "saved": (params, opt)}
 
@@ -391,25 +393,13 @@ def test_train_pp_refuses_what_the_jax_twin_refuses(n, sp, match):
 
 def test_two_launched_pods_run_train_pp_like_a_gang_booted_from_jax_blocks(tmp_path):
     argv = ["--model", "tiny", "--seq", "256", "--batch", "4", "--steps", "2"]
-    port = free_port()
-    procs = [_launcher(info, ["tests._torch_entry_worker", "launched_pp", *argv], tmp_path,
-                       f"pod{i}", timeout=240, env_block=pod_tpu_env(info), port=port)
-             for i, info in enumerate(_two_pods())]
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=300)
-            assert p.returncode == 0, err[-3000:]
-            outs += _json_lines(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    ref_port = str(free_port())
-    ref = run_workers(ENTRY_WORKER, [["train_pp", str(r), "4", ref_port, *argv] for r in range(4)],
-                      timeout=240)
+    outs = launched_pods("launched_pp", argv, tmp_path)
+    ref = entry_gang("train_pp", 4, argv)
     assert sorted(o["rank"] for o in outs) == [0, 1, 2, 3]
     for o in outs + ref:
-        assert o["world"] == 4 and o["losses"] == ref[0]["losses"], (o, ref[0])
+        # Two gangs of one run: a parting names the first leaf whose bits
+        # differ after the first step (ROADMAP queue 3, F5's rest).
+        assert o["world"] == 4 and o["losses"] == ref[0]["losses"], (
+            o["rank"], o["losses"], ref[0]["losses"], parting_leaf(outs, ref))
     assert len(ref[0]["losses"]) == 2 and all(np.isfinite(ref[0]["losses"]))
+

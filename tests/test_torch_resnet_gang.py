@@ -27,7 +27,8 @@ from hivedscheduler_tpu.models import resnet as JR
 from hivedscheduler_tpu_torch.models import convert, resnet
 from hivedscheduler_tpu_torch.workloads import train_resnet
 
-from ._multiproc import free_port, run_workers
+from ._multiproc import run_workers
+from ._torch_rendezvous import gang_store
 from ._torch_resnet_worker import flat
 from .test_torch_resnet import GRAD, LOSS_TOL, STATS_TOL, jax_f64
 
@@ -81,8 +82,9 @@ def gang(tmp_path_factory):
     np.savez(work / "stats.npz", **flat(stats))
     np.savez(work / "batch.npz", images=images, labels=labels, classes=CLASSES, width=WIDTH)
     (work / "cases.json").write_text(json.dumps(CASES))
-    port = str(free_port())
-    outs = run_workers(WORKER, [[str(r), "4", port, str(work)] for r in range(4)], timeout=240)
+    with gang_store(4) as port:
+        outs = run_workers(WORKER, [[str(r), "4", str(port), str(work)] for r in range(4)],
+                           timeout=240)
 
     def load(name):
         return {k: v for k, v in np.load(work / name).items()}

@@ -29,7 +29,8 @@ from hivedscheduler_tpu_torch.parallel import mesh as pmesh
 from hivedscheduler_tpu_torch.parallel import sharding
 from hivedscheduler_tpu_torch.tools import dryrun
 
-from ._multiproc import free_port, run_workers
+from ._multiproc import run_workers
+from ._torch_rendezvous import gang_store
 
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_sharding_worker.py")
 TOKENS = {"zeros": np.zeros((4, 256), np.int64),
@@ -84,9 +85,9 @@ def gang(tmp_path_factory, jax_params):
     params, opt = _one_process()
     train.train_step(params, opt, torch.from_numpy(TOKENS["rng"][:2, :64]), CONFIG, "cpu")
     checkpoint.TrainCheckpointer(str(work / "ckpt_one")).save(1, params, opt)
-    port = str(free_port())
-    outs = run_workers(WORKER, [["gang", str(r), "4", port, str(work)] for r in range(4)],
-                       timeout=400)
+    with gang_store(4) as port:
+        outs = run_workers(WORKER, [["gang", str(r), "4", str(port), str(work)] for r in range(4)],
+                           timeout=400)
     return {"outs": outs, "work": work, "saved": (params, opt)}
 
 
@@ -168,8 +169,8 @@ def test_gang_checkpoint_restores_in_one_process_bitwise(gang):
 
 def test_one_rank_mesh_equals_the_unsharded_step_bitwise(tmp_path):
     np.savez(tmp_path / "tokens.npz", **TOKENS)
-    (out,) = run_workers(WORKER, [["one", "0", "1", str(free_port()), str(tmp_path)]],
-                         timeout=240)
+    with gang_store(1) as port:
+        (out,) = run_workers(WORKER, [["one", "0", "1", str(port), str(tmp_path)]], timeout=240)
     assert out["init_equal"] and out["losses_equal"] and out["params_equal"], out
 
 

@@ -39,7 +39,8 @@ from hivedscheduler_tpu_torch.parallel import mesh as pmesh
 from hivedscheduler_tpu_torch.parallel import ring, sharding, ulysses
 from hivedscheduler_tpu_torch.tools import dryrun
 
-from ._multiproc import free_port, run_workers
+from ._multiproc import run_workers
+from ._torch_rendezvous import gang_store
 
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_sp_worker.py")
 B, S, D = 2, 64, 16
@@ -119,8 +120,9 @@ def gang(tmp_path_factory, jax_params):
     (work / "cases.json").write_text(json.dumps(cases))
     np.savez(work / "params.npz", **_flat(jax_params))
     np.savez(work / "tokens.npz", **TOKENS)
-    port = str(free_port())
-    outs = run_workers(WORKER, [[str(r), "4", port, str(work)] for r in range(4)], timeout=400)
+    with gang_store(4) as port:
+        outs = run_workers(WORKER, [[str(r), "4", str(port), str(work)] for r in range(4)],
+                           timeout=400)
     shards = [dict(np.load(work / f"attn_{r}.npz")) for r in range(4)]
     exchanged = [dict(np.load(work / f"exchange_{r}.npz")) for r in range(4)]
     return {"outs": outs, "work": work, "shards": shards, "inputs": inputs,

@@ -106,6 +106,24 @@ def test_chunked_ce_matches_jax(chunk):
     assert_grads_close({"x": gx, "head": gh}, {"x": tx.grad.numpy(), "head": th.grad.numpy()})
 
 
+def test_chunked_ce_rounds_the_input_gradient_once_in_bf16():
+    # ROADMAP F8: the fused loss sums x's gradient over its vocab chunks in
+    # f32 and rounds it once, so the chunk count moves it only where an f32
+    # reordering crosses a bf16 rounding boundary (summed in bf16 chunk by
+    # chunk, 16 chunks parted from one in about half the elements).
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(64, 64, generator=gen).to(torch.bfloat16)
+    head = (torch.randn(64, 2048, generator=gen) / 8).to(torch.bfloat16)
+    targets = torch.randint(0, 2048, (64,), generator=gen)
+    grads = {}
+    for chunk in (128, 2048):
+        tx = x.clone().requires_grad_()
+        TTR._chunked_ce(tx, head, targets, chunk).backward()
+        grads[chunk] = tx.grad
+    assert grads[128].dtype == torch.bfloat16
+    assert (grads[128] != grads[2048]).float().mean().item() <= 1e-3
+
+
 @pytest.mark.parametrize("fused,chunk", [(True, 128), (True, 135), (False, 128)])
 def test_next_token_loss_matches_jax(fused, chunk):
     jparams = JT.init(JT.tiny(), jax.random.PRNGKey(0))

@@ -34,7 +34,8 @@ from hivedscheduler_tpu.parallel import mesh as jmesh
 from hivedscheduler_tpu.parallel import sharding as JS
 from hivedscheduler_tpu_torch.models import train as TTR
 
-from ._multiproc import free_port, run_workers
+from ._multiproc import run_workers
+from ._torch_rendezvous import gang_store
 from ._torch_train_graph_mesh_worker import B, CASES, S, STEPS
 from .test_torch_train_graph import ADAM, RTOL
 
@@ -60,8 +61,9 @@ def ranks(tmp_path_factory, masters):
     work = tmp_path_factory.mktemp("train_graph_mesh")
     np.savez(work / "llama.npz", **_flat(masters))
     np.savez(work / "tokens.npz", steps=TOKENS)
-    port = str(free_port())
-    outs = run_workers(WORKER, [[str(r), "4", port, str(work)] for r in range(4)], timeout=300)
+    with gang_store(4) as port:
+        outs = run_workers(WORKER, [[str(r), "4", str(port), str(work)] for r in range(4)],
+                           timeout=300)
     return {o["rank"]: o for o in outs}
 
 

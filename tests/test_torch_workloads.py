@@ -25,7 +25,8 @@ from hivedscheduler_tpu_torch.models import quantize as TQ
 from hivedscheduler_tpu_torch.parallel import mesh
 from hivedscheduler_tpu_torch.workloads import common
 
-from ._multiproc import free_port, run_workers
+from ._multiproc import run_workers
+from ._torch_rendezvous import gang_store
 
 BLOCK = {
     "TPU_VISIBLE_CHIPS": "0,1,2,3",
@@ -117,9 +118,9 @@ ENTRY_WORKER = os.path.join(os.path.dirname(__file__), "_torch_entry_worker.py")
 
 
 def gang(mode, world, argv):
-    port = str(free_port())
-    return run_workers(ENTRY_WORKER, [[mode, str(r), str(world), port, *argv]
-                                      for r in range(world)], timeout=240)
+    with gang_store(world) as port:
+        return run_workers(ENTRY_WORKER, [[mode, str(r), str(world), str(port), *argv]
+                                          for r in range(world)], timeout=240)
 
 
 def test_two_process_train_main_matches_one_process_on_the_same_batches(token_file, capsys):
