@@ -14,15 +14,10 @@ rank writes it to ``rank<r>.json`` in ``$ENTRY_WORKER_OUT``): the rank,
 the losses of each step or each request's tokens (this rank's rows), the
 world size. ``fail-or-hang`` exits 3 as rank 1 and sleeps as any other rank.
 
-Every process that runs a step takes one thread and turns on
-``torch.use_deterministic_algorithms`` (``deterministic``), as the
-train-graph gang worker does: the tests hold two gangs' losses equal with
-``==``, and the embedding lookup's backward (``index_put_`` with
-accumulate) adds a token's rows in no fixed order on two threads. Two
-gangs of two deterministic threads a rank under load have also parted by
-two ulps in a loss, for a cause not found (unloaded, 1 to 8 threads give
-the same bits); one thread works around that open fault. So that a parting
-names where it starts, every training mode's line also holds ``digests``
+Every process is a CPU rank of a test gang (``_torch_rendezvous.cpu_rank``:
+one thread, deterministic algorithms), as every gang worker is: the tests
+hold two gangs' losses equal with ``==``. So that a parting names where
+it starts, every training mode's line also holds ``digests``
 of this rank's first step, which ``parting_leaf`` compares across gangs:
 its batch, each parameter leaf before it, each block's output in it (in
 call order, a checkpointed block's recompute included), and each leaf and
@@ -140,19 +135,12 @@ def _train_losses(mode, argv, digests):
     return [r["loss"] for r in train.main(argv + ["--device", "cpu"]).records]
 
 
-def deterministic() -> None:
-    """One thread a process (the ranks share the host's cores) and sums in
-    one order: the same step gives the same bits in every gang."""
-    import torch
-
-    torch.set_num_threads(1)
-    torch.use_deterministic_algorithms(True)
-
-
 def launched(mode, argv) -> None:
     import torch.distributed as dist
 
-    deterministic()  # as the train/serve gangs: the same sums, the same losses
+    from tests._torch_rendezvous import cpu_rank
+
+    cpu_rank()
 
     digests = {}
     try:
@@ -186,10 +174,10 @@ def main() -> None:
 
     import torch.distributed as dist
 
-    from tests._torch_rendezvous import AGENT_STORE
+    from tests._torch_rendezvous import AGENT_STORE, cpu_rank
 
     os.environ.update(AGENT_STORE)  # rank 0 too joins the test's store
-    deterministic()
+    cpu_rank()
 
     from hivedscheduler_tpu_torch import serve
 

@@ -30,8 +30,9 @@ def main() -> None:
     from hivedscheduler_tpu_torch.parallel import mesh as pmesh
     from hivedscheduler_tpu_torch.utils import data
     from hivedscheduler_tpu_torch.workloads.common import parse_env_block
-    from tests._torch_rendezvous import AGENT_STORE
+    from tests._torch_rendezvous import AGENT_STORE, cpu_rank
 
+    cpu_rank()
     os.environ.update(AGENT_STORE)
     env = parse_env_block(block)
     env["JAX_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"

@@ -98,12 +98,11 @@ def gang(rank, workdir):
 def main() -> None:
     rank, world, port, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 
-    import torch
     import torch.distributed as dist
 
-    from tests._torch_rendezvous import join
+    from tests._torch_rendezvous import cpu_rank, join
 
-    torch.set_num_threads(2)  # the ranks share the host's cores
+    cpu_rank()
     join(port, world, rank)  # a client of the test's store
     try:
         out = gang(rank, workdir)

@@ -116,9 +116,9 @@ def main() -> None:
     import torch
     import torch.distributed as dist
 
-    from tests._torch_rendezvous import join
+    from tests._torch_rendezvous import cpu_rank, join
 
-    torch.set_num_threads(2)  # the ranks share the host's cores
+    cpu_rank()
     join(port, world, rank)  # a client of the test's store
 
     from hivedscheduler_tpu_torch.models import convert, train, transformer

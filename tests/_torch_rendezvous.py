@@ -51,6 +51,27 @@ def gang_store(world: int) -> Iterator[int]:
         del store  # the last reference: the server stops and frees the port
 
 
+def cpu_rank() -> None:
+    """Set this process up as a CPU rank of a test gang, before its first
+    op: one intra-op thread and torch's deterministic algorithms. Every
+    gang worker calls it.
+
+    The tests hold gangs' losses, tokens, digests and leaves bitwise, so
+    two ranks that run the same step must add in the same order. At two
+    threads the embedding's backward (``index_put_`` with accumulate) adds
+    a token's rows in no fixed order; the deterministic algorithms sort
+    them. At two threads a weight gradient's GEMM (MKL) adds in another
+    order than at one, and deterministic gangs at two threads a rank have
+    parted by an ulp under six loaded xdist workers, a process with no
+    peer too, for a cause below the port that no run pinned (ROADMAP
+    queue 3, F5); none has parted at one thread. The ranks also share the
+    host's cores."""
+    import torch
+
+    torch.set_num_threads(1)
+    torch.use_deterministic_algorithms(True)
+
+
 def join(port, world, rank, backend: str = "gloo") -> None:
     """The default process group of rank ``rank`` of ``world``, through the
     test's store at ``port`` (``gang_store``)."""

@@ -181,9 +181,6 @@ def one(workdir):
     from hivedscheduler_tpu_torch.parallel import mesh as pmesh
     from hivedscheduler_tpu_torch.parallel import sharding
 
-    # Bitwise needs deterministic kernels: the embedding's backward
-    # (index_put_ with accumulate) sums in a varying order on the CPU.
-    torch.use_deterministic_algorithms(True)
     config = transformer.tiny()
     mesh = pmesh.make_mesh(pmesh.MeshConfig(), device="cpu")
     toks = torch.from_numpy(dict(np.load(os.path.join(workdir, "tokens.npz")))["rng"])
@@ -210,12 +207,11 @@ def main() -> None:
     mode, rank, world, port, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
         sys.argv[4], sys.argv[5]
 
-    import torch
     import torch.distributed as dist
 
-    from tests._torch_rendezvous import join
+    from tests._torch_rendezvous import cpu_rank, join
 
-    torch.set_num_threads(2)  # the ranks share the host's cores
+    cpu_rank()
     join(port, world, rank)  # a client of the test's store
     try:
         out = gang(rank, workdir) if mode == "gang" else one(workdir)

@@ -192,16 +192,13 @@ def case(workdir, sizes, kind):
 def main() -> None:
     rank, world, port, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 
-    import torch
     import torch.distributed as dist
 
-    from tests._torch_rendezvous import join
+    from tests._torch_rendezvous import cpu_rank, join
 
     from hivedscheduler_tpu_torch.models import train
 
-    torch.set_num_threads(1)  # the ranks share the host's cores
-    # The CPU's threaded embedding backward adds in no fixed order.
-    torch.use_deterministic_algorithms(True)
+    cpu_rank()
     adam = importlib.import_module("torch.optim.adam")
     adam._get_capturable_supported_devices = lambda supports_xla=True: ["cuda", "cpu"]
     train._graphed = lambda t: True

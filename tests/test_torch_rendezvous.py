@@ -2,8 +2,10 @@
 one TCP store a gang, held by the test process on a port the OS gives it,
 every rank a client. A port chosen by binding port 0 and closing the socket
 could be taken by any process on the host before the gang's rank 0 bound it
-again (gloo's ``connectFullMesh`` closed by a peer, ``EADDRINUSE``)."""
+again (gloo's ``connectFullMesh`` closed by a peer, ``EADDRINUSE``). And
+every rank's CPU set-up, ``cpu_rank``: one thread, deterministic sums."""
 
+import glob
 import json
 import os
 import socket
@@ -17,6 +19,7 @@ from ._torch_rendezvous import AGENT_STORE, HOST, gang_store
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "_torch_rendezvous.py")
+GANG_WORKERS = sorted(glob.glob(os.path.join(ROOT, "tests", "_torch_*_worker.py")))
 
 
 def _bindable(port: int) -> bool:
@@ -81,3 +84,26 @@ def test_a_launched_rank_joins_the_test_store_as_a_client(tmp_path, agent_store)
         assert proc.returncode != 0
         assert "EADDRINUSE" in proc.stderr or "address already in use" in proc.stderr.lower(), \
             proc.stderr[-3000:]
+
+
+@pytest.mark.parametrize("path", GANG_WORKERS, ids=os.path.basename)
+def test_every_gang_worker_sets_up_its_cpu_through_cpu_rank(path):
+    # One place sets a rank's threads and sums (ROADMAP queue 3, F5): a
+    # worker that set its own could run two threads again.
+    source = open(path).read()
+    assert "cpu_rank()" in source
+    assert "set_num_threads(" not in source and "use_deterministic_algorithms(" not in source
+
+
+def test_a_cpu_rank_runs_one_thread_with_deterministic_sums():
+    code = ("import json, torch; from tests._torch_rendezvous import cpu_rank; cpu_rank(); "
+            "print(json.dumps([torch.get_num_threads(), "
+            "torch.are_deterministic_algorithms_enabled(), torch.__config__.parallel_info()]))")
+    env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    threads, deterministic, info = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert threads == 1 and deterministic
+    # MKL's GEMMs too run on the one thread (torch sets its count with OpenMP's).
+    assert "mkl_get_max_threads() : 1" in info, info
